@@ -31,6 +31,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -61,10 +62,22 @@ VERIFY_FIELD_MULS = 2144
 VERIFY_FIELD_SQS = 1533
 VERIFY_INT_OPS = 2 * (VERIFY_FIELD_MULS * 72 + VERIFY_FIELD_SQS * 44)
 VERIFY_BYTES = 4 * 32 + 4
-# Challenge kernel: 2,840 64-bit adds, rotates and logic ops for the 80
-# SHA-512 rounds and message schedule, each two 32-bit ops (the mod-L
-# reduction, a few hundred more, is left out: the bound stays a bound).
-CHALLENGE_INT_OPS = 2 * (80 * 25 + 64 * 13 + 8)
+# Challenge kernel: the least 32-bit instruction count per signature as
+# Hopper issues it (csrc/sha512_challenge.cu), constants folded:
+#   * a round is 28: each 64-bit rotate is one SHF funnel shift per half
+#     (6 for Sigma0, 6 for Sigma1), each three-input XOR, Ch and Maj one
+#     LOP3 per half (8), and the adds as IADD3/IADD3.X pairs: two for t1
+#     (5 operands), one for a = t1 + Sigma0 + Maj, one for e = d + t1
+#     (8); round 0, whose state is all H0, is 4 (a and e are w0 plus a
+#     constant): 79 * 28 + 4;
+#   * a schedule word is 20: sigma0 and sigma1 6 shifts + 2 LOP3 each,
+#     the 4-operand sum two IADD3 pairs; W[12..15] are constants, which
+#     saves 60 over t = 16..31 (sigma of a constant, 3-operand sums):
+#     64 * 20 - 60;
+#   * the final H0 + state adds, 8 * 2, and the byte swaps, one PRMT per
+#     32-bit word: 24 in, 16 for the digest.
+# The mod-L reduction is left out, so the bound stays a lower bound.
+CHALLENGE_INT_OPS = (79 * 28 + 4) + (64 * 20 - 60) + 8 * 2 + (24 + 16)
 CHALLENGE_BYTES = 3 * 32 + 32
 
 
@@ -397,6 +410,28 @@ def phase_sidecar(provider, sidecar, kernels, jobs, want):
     return stats, launches
 
 
+def sass_opcodes(nvcc: str, lib: str, kernel: str) -> dict[str, int]:
+    """Static SASS instruction count of ``kernel`` in the shared library
+    ``lib`` by opcode (``cuobjdump -sass``; NOPs left out). The challenge
+    kernel is fully unrolled, so each thread runs about this many."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", lib],
+        capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    inside = False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = kernel in ln
+        elif inside:
+            m = re.match(
+                r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", ln)
+            if m and m.group(1) != "NOP":
+                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    check(sum(counts.values()) > 0, f"no SASS found for {kernel} in {lib}")
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
 def ptxas_summary(build, src: str) -> str:
     lines = [ln.strip() for ln in build.ptxas_report(src).splitlines()
              if "registers" in ln or "spill" in ln]
@@ -423,11 +458,16 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.build_all()
+    libs = _build.build_all()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s {dict(_build.BUILD_SECONDS)}")
     for src in _build.SOURCES:
         log(f"ptxas {src}: {ptxas_summary(_build, src)}")
+    sass2 = sass_opcodes(_build.find_nvcc(), libs["sha512_challenge.cu"],
+                         "sha512_challenge_kernel")
+    log(f"sass sha512_challenge_kernel: {sum(sass2.values())} instructions "
+        f"(least count for the hash {CHALLENGE_INT_OPS}); "
+        f"{dict(list(sass2.items())[:8])}")
 
     rng = np.random.default_rng(SEED)
     zero_ok = ref.verify(bytes(32), bytes(32), bytes(64))
@@ -474,6 +514,8 @@ def main() -> int:
               "main": main_res, "sidecar_stats": stats,
               "sidecar_launches": side_launches,
               "ptxas": {s: ptxas_summary(_build, s) for s in _build.SOURCES},
+              "sass_sha512_challenge": sass2,
+              "challenge_least_int_ops": CHALLENGE_INT_OPS,
               **line}
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "chiprun_out")

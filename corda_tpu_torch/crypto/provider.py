@@ -89,17 +89,16 @@ WARM_SIZES = (513, 1025)
 
 class _Packed:
     """A batch packed for the device: word tensors already on the device,
-    which kernel path runs them, and where each lane's answer goes."""
+    the verify function that runs them, and where each lane's answer goes."""
 
-    __slots__ = ("jobs", "good", "tensors", "hashed", "n", "bucket")
+    __slots__ = ("jobs", "good", "tensors", "verify_fn", "n")
 
-    def __init__(self, jobs, good, tensors, hashed, n):
+    def __init__(self, jobs, good, tensors, verify_fn, n):
         self.jobs = jobs
         self.good = good
         self.tensors = tensors
-        self.hashed = hashed
+        self.verify_fn = verify_fn
         self.n = n
-        self.bucket = tensors[0].shape[1]
 
 
 class TorchVerifier(BatchVerifier):
@@ -125,8 +124,6 @@ class TorchVerifier(BatchVerifier):
         self.shadow_rate = shadow_rate
         self._rng = rng or random.Random(0)
         self.device_batches = 0
-        self.device_lanes = 0
-        self.pad_lanes = 0
 
     @property
     def kernel_backend(self) -> str:
@@ -150,27 +147,16 @@ class TorchVerifier(BatchVerifier):
         good = [i for i, j in enumerate(jobs) if _well_formed(j)]
         if not good:
             return None
-        pks = [jobs[i].pubkey for i in good]
-        msgs = [jobs[i].message for i in good]
-        sigs = [jobs[i].sig for i in good]
-        hashed = ted.device_hash_eligible(msgs)
-        if hashed:
-            arrays, n = ted.precompute_batch_device(pks, msgs, sigs,
-                                                    bucket=len(good))
-        else:
-            arrays, n = ted.precompute_batch(pks, msgs, sigs, bucket=len(good))
+        verify_fn, arrays, n = ted._precompute_auto(
+            [jobs[i].pubkey for i in good], [jobs[i].message for i in good],
+            [jobs[i].sig for i in good], len(good))
         tensors = tuple(ted.words_to_tensor(w, self.device) for w in arrays)
-        return _Packed(jobs, good, tensors, hashed, n)
+        return _Packed(jobs, good, tensors, verify_fn, n)
 
     def verify_packed(self, packed: _Packed) -> np.ndarray:
         """Run a packed batch on the device -> bool[len(jobs)]."""
-        from ..ops import ed25519 as ted
-
-        fn = ted.verify_arrays_hashed if packed.hashed else ted.verify_arrays
-        lanes = fn(*packed.tensors)[:packed.n].cpu().numpy()
+        lanes = packed.verify_fn(*packed.tensors)[:packed.n].cpu().numpy()
         self.device_batches += 1
-        self.device_lanes += packed.bucket
-        self.pad_lanes += packed.bucket - packed.n
         out = np.zeros(len(packed.jobs), bool)
         out[packed.good] = lanes
         _shadow_check(packed.jobs, out, self.shadow_rate, self._rng)

@@ -531,8 +531,6 @@ class SidecarServer:
         with self._lock:
             hist = {str(k): self.batch_sigs_hist[k]
                     for k in sorted(self.batch_sigs_hist)}
-            lanes = getattr(v, "device_lanes", 0)
-            pad = getattr(v, "pad_lanes", 0)
             return {
                 "address": self.address,
                 "verifier": getattr(v, "name", None),
@@ -547,9 +545,9 @@ class SidecarServer:
                 "device_batches": getattr(v, "device_batches", None),
                 "packed_batches": self.packed_batches,
                 "pack_s_total": round(self.pack_s_total, 6),
-                "device_lanes": lanes,
-                "pad_lanes": pad,
-                "pad_fraction": round(pad / lanes, 4) if lanes else 0.0,
+                # The port packs each batch to its exact size (the kernels
+                # take any N), so no lane is ever padding.
+                "pad_lanes": 0,
                 "coalesce_us": self.coalesce_us,
                 "max_sigs": self.max_sigs,
                 "depth": self.depth,

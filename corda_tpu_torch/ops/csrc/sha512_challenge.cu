@@ -9,9 +9,11 @@
 // bit-identical to hashlib.sha512 + int % L. N is any size.
 //
 // What bounds it on an H100: 64-bit integer ALU work. 96 bytes read and 32
-// written per signature against roughly 5,000 32-bit integer operations
-// (80 rounds of 64-bit adds, rotates and logic, each two 32-bit
-// instructions, plus the reduction). Design:
+// written per signature against at least 3,492 32-bit integer instructions
+// for the hash alone (80 rounds and the message schedule on 32-bit halves:
+// SHF funnel shifts for the rotates, LOP3 for the three-input logic,
+// IADD3 pairs for the multi-operand adds; counted in chip_smoke.py), plus
+// the reduction. Design:
 //   * native uint64 words: the 80 rounds keep the 16-word message window
 //     in registers (fully unrolled), and the round constants sit in
 //     __constant__ memory, where every lane of a warp reads the same entry
