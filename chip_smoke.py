@@ -8,7 +8,9 @@ this checkout):
 Phases, in order; any failure exits non-zero and prints no result:
   1. probe    -- a CUDA device must exist; print its name and power limit.
   2. build    -- compile both kernels from csrc/ with nvcc (in parallel).
-  3. kernels  -- each kernel against its plain PyTorch version on the card
+  3. kernels  -- the verify kernel's field operations (its PTX carry
+                 chains) on the card against Python integers; each kernel
+                 against its plain PyTorch version on the card
                  on the golden corpus (valid, corrupted, S + L, non-canonical
                  A and R, an invalid point, all-zero lanes) at N = 1024 and
                  a ragged N = 1000, and the challenge against hashlib.
@@ -20,7 +22,9 @@ Phases, in order; any failure exits non-zero and prints no result:
   5. sidecar  -- a SidecarServer on the card, three client threads sending
                  2,048-signature requests (one with a tampered job, one with
                  a malformed key); every reply held to the oracle.
-  6. the kernels line, then the device line (last).
+  6. the verify kernel's registers, static SASS counts, resident blocks
+     per SM and waves at N_MAIN; the kernels line, then the device line
+     (last).
 
 Everything is made from fixed seeds; the oracle (crypto/ref_ed25519.py)
 decides every expected answer.
@@ -28,6 +32,7 @@ decides every expected answer.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
 import os
@@ -53,14 +58,19 @@ TAMPER_FRACTION = 0.01
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 132 * 64 * 1.98e9
 
-# Work per signature of the verify kernel, counted from its structure
-# (csrc/ed25519_verify.cu): 2,144 field multiplies and 1,533 squarings.
 # The least integer work per field multiply in radix 2^32 is 64 32x32->64
 # products plus 8 for the reduction (36 + 8 for a square), each product
 # two 32-bit multiply-adds (low and high halves).
-VERIFY_FIELD_MULS = 2144
-VERIFY_FIELD_SQS = 1533
-VERIFY_INT_OPS = 2 * (VERIFY_FIELD_MULS * 72 + VERIFY_FIELD_SQS * 44)
+MUL_INT_OPS, SQ_INT_OPS = 2 * 72, 2 * 44
+# Work per signature of the verify kernel's own structure
+# (csrc/ed25519_verify.cu), the same for every input: 1,835 field
+# multiplies and 1,537 squarings -- decompression 20 + 255 (the pow22523
+# chain 11 + 251), the [1..8](-A) table 60 + 4, the top-digit window
+# 14 + 0, 64 windows of 27 + 16 (three doublings to p2, one to p3, a mixed
+# add to p3, an add to p2), the final inversion and encode 13 + 254.
+# Recorded beside the bound, which counts less (verify_least_int_ops).
+VERIFY_FIELD_MULS = 1835
+VERIFY_FIELD_SQS = 1537
 VERIFY_BYTES = 4 * 32 + 4
 # Challenge kernel: the least 32-bit instruction count per signature as
 # Hopper issues it (csrc/sha512_challenge.cu), constants folded:
@@ -110,6 +120,50 @@ def cuda_ms(fn, reps: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def wnaf5(x: int) -> tuple[int, int]:
+    """(nonzero digits, index of the top one or -1) of ``x`` in width-5
+    signed sliding windows: odd digits in -15..15, at least four zeros
+    after each, as ref10's slide() recodes a scalar (any 256 bits here)."""
+    nonzero, top, i = 0, -1, 0
+    while x:
+        if x & 1:
+            d = x & 31
+            x -= d - 32 if d > 16 else d
+            nonzero, top = nonzero + 1, i
+        x >>= 1
+        i += 1
+    return nonzero, top
+
+
+def verify_least_int_ops(s: np.ndarray, h: np.ndarray) -> tuple[int, dict]:
+    """The least integer work of verifying the lanes whose (8, N) uint32
+    scalar words are ``s`` and ``h``, counted as ref10's variable-time
+    ge_double_scalarmult_vartime needs it for these scalars. That needs
+    less than the kernel's fixed windows, which pay a full addition for
+    a zero digit. Per signature:
+      * decompression 20 mul + 255 sq, inversion and encode 13 + 254 (as
+        in the kernel);
+      * the odd multiples [1, 3, ..., 15](-A): 68 mul + 4 sq;
+      * one doubling (4 sq) and its p2 form (3 mul) per bit from the top
+        nonzero digit of either scalar down;
+      * 8 mul per nonzero digit of h (an addition of a cached -A entry and
+        the p3 form before it), 7 per nonzero digit of S (a mixed addition
+        of a fixed B entry).
+    Returns (integer ops of all lanes, per-signature means)."""
+    cols = np.ascontiguousarray(np.concatenate([s, h]).T)
+    uniq, counts = np.unique(cols, axis=0, return_counts=True)
+    muls = sqs = 0
+    for row, c in zip(uniq, counts):
+        ns, ts = wnaf5(sum(int(w) << (32 * k) for k, w in enumerate(row[:8])))
+        nh, th = wnaf5(sum(int(w) << (32 * k) for k, w in enumerate(row[8:])))
+        bits = max(ts, th) + 1
+        muls += int(c) * (20 + 13 + 68 + 3 * bits + 8 * nh + 7 * ns)
+        sqs += int(c) * (255 + 254 + 4 + 4 * bits)
+    n = cols.shape[0]
+    return (muls * MUL_INT_OPS + sqs * SQ_INT_OPS,
+            {"field_muls": muls / n, "field_sqs": sqs / n})
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -169,6 +223,45 @@ def tile(cases, expect, n, zero_tail=0):
     lanes = [cases[i] for i in idx] + [zero] * zero_tail
     want = [expect[i] for i in idx]
     return lanes, want
+
+
+def words_of_ints(vals) -> np.ndarray:
+    """Python ints < 2^256 -> (n, 8) little-endian uint32 words."""
+    return np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+                     for v in vals], np.uint32)
+
+
+def phase_field_ops(ref, kernels, dev, rng):
+    """Phase 3a: the verify kernel's field operations on the card (the PTX
+    carry chains; the CPU tests see only their C twin) against Python
+    integers: freeze exactly, the others mod p, on edge values of the lazy
+    representation (any 256 bits) and random ones."""
+    p = ref.P
+    ops = [("mul", lambda a, b: a * b % p), ("sq", lambda a, b: a * a % p),
+           ("add", lambda a, b: (a + b) % p), ("sub", lambda a, b: (a - b) % p),
+           ("neg", lambda a, b: -a % p), ("freeze", lambda a, b: a % p),
+           ("invert", lambda a, b: pow(a, p - 2, p)),
+           ("pow22523", lambda a, b: pow(a, (p - 5) // 8, p))]
+    edge = [0, 1, 2, 19, 38, p - 1, p, p + 1, p + 18, 2**255 - 1,
+            2**255 - 20, 2**255, 2 * p, 2 * p + 37, 2**256 - 38, 2**256 - 39,
+            2**256 - 1, 608]
+    va = edge + [int.from_bytes(rng.bytes(32), "little") for _ in range(2030)]
+    vb = edge[::-1] + [int.from_bytes(rng.bytes(32), "little")
+                       for _ in range(2030)]
+    a, b = (torch.from_numpy(words_of_ints(v).view(np.int32)).to(dev)
+            for v in (va, vb))
+    for op, (name, fn) in enumerate(ops):
+        out = kernels.fe_op_cuda(op, a, b).cpu().numpy().view(np.uint32)
+        got = [sum(int(x) << (32 * i) for i, x in enumerate(row)) for row in out]
+        want = [fn(x, y) for x, y in zip(va, vb)]
+        if name == "freeze":
+            check(got == want, "fe_freeze on the card != Python ints")
+        else:
+            bad = sum(g % p != w for g, w in zip(got, want))
+            check(bad == 0, f"fe_{name} on the card != Python ints on {bad} "
+                            f"of {len(va)} values")
+    log(f"field ops on the card: {len(ops)} ops x {len(va)} values "
+        f"({len(edge)} edge) equal Python integers")
 
 
 def phase_kernels(ref, ted, tsha, kernels, dev, rng, zero_ok):
@@ -293,6 +386,8 @@ def phase_main(ref, provider, ted, tsha, kernels, dev, rng, card):
     h = kernels.sha512_challenge_cuda(R, A, M)
     k2_ms = cuda_ms(lambda: kernels.sha512_challenge_cuda(R, A, M))
     k1_ms = cuda_ms(lambda: kernels.ed25519_verify_cuda(A, R, S, h))
+    least_ops, least_per_sig = verify_least_int_ops(
+        *(t.cpu().numpy().view(np.uint32) for t in (S, h)))
 
     # Plain versions on the same inputs; the first run of each is also the
     # full-size comparison with the kernel.
@@ -314,6 +409,8 @@ def phase_main(ref, provider, ted, tsha, kernels, dev, rng, card):
         "launches": launches, "pack_ms": pack_ms, "k1_ms": k1_ms,
         "k2_ms": k2_ms, "p1_ms": p1_ms, "p2_ms": p2_ms, "e2e_ms": e2e_ms,
         "e2e_sigs_s": N_MAIN / (e2e_ms / 1e3),
+        "verify_least_int_ops": least_ops,
+        "verify_least_per_sig": least_per_sig,
         "max_err": {
             "ed25519_verify": int((ok_k.long() - ok_p.long()).abs().max()),
             "sha512_challenge": int((h.long() - h_p.long()).abs().max())},
@@ -410,32 +507,101 @@ def phase_sidecar(provider, sidecar, kernels, jobs, want):
     return stats, launches
 
 
-def sass_opcodes(nvcc: str, lib: str, kernel: str) -> dict[str, int]:
-    """Static SASS instruction count of ``kernel`` in the shared library
-    ``lib`` by opcode (``cuobjdump -sass``; NOPs left out). The challenge
-    kernel is fully unrolled, so each thread runs about this many."""
+def sass_instructions(nvcc: str, lib: str, kernel: str) -> list[tuple]:
+    """(address, opcode with its modifiers, branch target or None) of each
+    SASS instruction of ``kernel`` in the shared library ``lib``
+    (``cuobjdump -sass``; NOPs left out)."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run(
         [cuobjdump, "-sass", lib],
         capture_output=True, text=True, check=True).stdout
-    counts: dict[str, int] = {}
+    out = []
     inside = False
     for ln in sass.splitlines():
         if "Function :" in ln:
             inside = kernel in ln
         elif inside:
-            m = re.match(
-                r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", ln)
-            if m and m.group(1) != "NOP":
-                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
-    check(sum(counts.values()) > 0, f"no SASS found for {kernel} in {lib}")
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9.]*)([^;]*);", ln)
+            if m and not m.group(2).startswith("NOP"):
+                tgt = (re.search(r"0x([0-9a-f]+)", m.group(3))
+                       if m.group(2).startswith("BRA") else None)
+                out.append((int(m.group(1), 16), m.group(2),
+                            int(tgt.group(1), 16) if tgt else None))
+    check(bool(out), f"no SASS found for {kernel} in {lib}")
+    return out
+
+
+def opcode_counts(ins, modifiers: bool = False) -> dict[str, int]:
+    """Instructions by opcode (with its modifiers, or without), most first.
+    The challenge kernel is fully unrolled, so each thread runs about its
+    static count."""
+    counts: dict[str, int] = {}
+    for _, op, _ in ins:
+        key = op if modifiers else op.split(".")[0]
+        counts[key] = counts.get(key, 0) + 1
     return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
 
 
+def largest_loop(ins) -> list[tuple]:
+    """The body of the longest backward branch: in the verify kernel, one
+    window of the scalar multiplication (64 per signature)."""
+    index = {a: k for k, (a, _, _) in enumerate(ins)}
+    best: list[tuple] = []
+    for k, (a, _, tgt) in enumerate(ins):
+        if tgt is not None and tgt < a and tgt in index \
+                and k + 1 - index[tgt] > len(best):
+            best = ins[index[tgt]:k + 1]
+    return best
+
+
 def ptxas_summary(build, src: str) -> str:
-    lines = [ln.strip() for ln in build.ptxas_report(src).splitlines()
-             if "registers" in ln or "spill" in ln]
+    """ptxas's register, stack and spill lines for the kernels of ``src``
+    (the fe_op check kernel's lines left out)."""
+    text = build.ptxas_report(src)
+    lines, skip, fn = [], False, ""
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            skip = "fe_op_kernel" in ln
+        elif "Function properties for" in ln:
+            fn = ln.split("Function properties for")[-1].strip()
+        elif not skip and ("registers" in ln or "spill" in ln):
+            lines.append(f"{fn}: {ln.strip()}" if "spill" in ln else ln.strip())
     return " | ".join(lines)
+
+
+def verify_sass_summary(sass: dict[str, int]) -> dict[str, int]:
+    keys = ("IMAD", "IADD3", "LDL", "STL", "LDS")
+    return {"total": sum(sass.values()), **{k: sass.get(k, 0) for k in keys}}
+
+
+def occupancy(lib, blocks_n: int) -> dict[str, int]:
+    """Resident blocks per SM of the verify kernel in ``lib`` and the waves
+    its launch at ``blocks_n`` signatures takes on this card."""
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    fn = lib.ed25519_verify_occupancy
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    check(fn(ctypes.byref(blocks), ctypes.byref(threads)) == 0,
+          "cudaOccupancyMaxActiveBlocksPerMultiprocessor failed")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = -(-blocks_n // threads.value)
+    check(blocks.value > 0, "the verify kernel fits no block on an SM")
+    return {"blocks_per_sm": blocks.value, "threads": threads.value,
+            "sms": sms, "grid": grid,
+            "waves": -(-grid // (blocks.value * sms))}
+
+
+def bound_ms(nbytes: int, int_ops: int) -> tuple[float, str]:
+    """The least milliseconds to move ``nbytes`` or to issue ``int_ops``
+    32-bit integer operations on this card, and which one binds."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, int_ops / PEAK_INT32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def out_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chiprun_out")
 
 
 def main() -> int:
@@ -455,6 +621,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
 
     # 2. build
     t0 = time.perf_counter()
@@ -463,16 +630,29 @@ def main() -> int:
     log(f"build: {build_s:.1f} s {dict(_build.BUILD_SECONDS)}")
     for src in _build.SOURCES:
         log(f"ptxas {src}: {ptxas_summary(_build, src)}")
-    sass2 = sass_opcodes(_build.find_nvcc(), libs["sha512_challenge.cu"],
-                         "sha512_challenge_kernel")
+    sass2 = opcode_counts(sass_instructions(
+        _build.find_nvcc(), libs["sha512_challenge.cu"],
+        "sha512_challenge_kernel"))
     log(f"sass sha512_challenge_kernel: {sum(sass2.values())} instructions "
         f"(least count for the hash {CHALLENGE_INT_OPS}); "
         f"{dict(list(sass2.items())[:8])}")
+    ins1 = sass_instructions(_build.find_nvcc(), libs["ed25519_verify.cu"],
+                             "ed25519_verify_kernel")
+    sass1 = opcode_counts(ins1)
+    loop1 = opcode_counts(largest_loop(ins1), modifiers=True)
+    occ = occupancy(_build.load("ed25519_verify.cu"), N_MAIN)
+    log(f"sass ed25519_verify_kernel: {verify_sass_summary(sass1)}; "
+        f"{dict(list(sass1.items())[:8])}")
+    log(f"sass ed25519_verify_kernel window loop: {sum(loop1.values())} "
+        f"instructions; {dict(list(loop1.items())[:10])}")
+    log(f"ed25519_verify_kernel occupancy: {occ['blocks_per_sm']} blocks of "
+        f"{occ['threads']} per SM x {occ['sms']} SMs; N={N_MAIN} is "
+        f"{occ['grid']} blocks = {occ['waves']} wave(s)")
 
-    rng = np.random.default_rng(SEED)
     zero_ok = ref.verify(bytes(32), bytes(32), bytes(64))
 
-    # 3. kernels vs plain versions
+    # 3. field ops on the card, kernels vs plain versions
+    phase_field_ops(ref, kernels, dev, rng)
     max_err = phase_kernels(ref, ted, tsha, kernels, dev, rng, zero_ok)
 
     # 4. main path at full size
@@ -486,14 +666,15 @@ def main() -> int:
                                          want)
 
     # 6. kernels line
-    bound1 = max(N_MAIN * VERIFY_BYTES / PEAK_BYTES_S,
-                 N_MAIN * VERIFY_INT_OPS / PEAK_INT32_OPS_S) * 1e3
-    bound2 = max(N_MAIN * CHALLENGE_BYTES / PEAK_BYTES_S,
-                 N_MAIN * CHALLENGE_INT_OPS / PEAK_INT32_OPS_S) * 1e3
-    by1 = ("bytes" if N_MAIN * VERIFY_BYTES / PEAK_BYTES_S
-           > N_MAIN * VERIFY_INT_OPS / PEAK_INT32_OPS_S else "operations")
-    by2 = ("bytes" if N_MAIN * CHALLENGE_BYTES / PEAK_BYTES_S
-           > N_MAIN * CHALLENGE_INT_OPS / PEAK_INT32_OPS_S else "operations")
+    bound1, by1 = bound_ms(N_MAIN * VERIFY_BYTES,
+                           main_res["verify_least_int_ops"])
+    bound2, by2 = bound_ms(N_MAIN * CHALLENGE_BYTES,
+                           N_MAIN * CHALLENGE_INT_OPS)
+    structure_ops = N_MAIN * (VERIFY_FIELD_MULS * MUL_INT_OPS
+                              + VERIFY_FIELD_SQS * SQ_INT_OPS)
+    log(f"verify bound: {bound1:.4f} ms for the least work of these scalars "
+        f"({main_res['verify_least_per_sig']} per signature); the kernel's "
+        f"fixed windows {bound_ms(0, structure_ops)[0]:.4f} ms")
     line = {"kernels": [
         {"name": "ed25519_verify", "route": "cuda",
          "source": "corda_tpu_torch/ops/csrc/ed25519_verify.cu",
@@ -516,11 +697,14 @@ def main() -> int:
               "ptxas": {s: ptxas_summary(_build, s) for s in _build.SOURCES},
               "sass_sha512_challenge": sass2,
               "challenge_least_int_ops": CHALLENGE_INT_OPS,
+              "sass_ed25519_verify": sass1,
+              "sass_ed25519_verify_summary": verify_sass_summary(sass1),
+              "sass_ed25519_verify_window_loop": loop1,
+              "ed25519_verify_occupancy": occ,
+              "verify_structure_bound_ms": bound_ms(0, structure_ops)[0],
               **line}
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+    os.makedirs(out_dir(), exist_ok=True)
+    with open(os.path.join(out_dir(), "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     log(f"{card} | main path end to end {main_res['e2e_sigs_s']:.0f} sigs/s")
     print(json.dumps(line), flush=True)

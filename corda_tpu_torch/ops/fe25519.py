@@ -7,8 +7,8 @@ element is 20 limbs of 13 bits in int32, **limb-major** (shape
 the same integer operations in the same order as the JAX module, so the
 two produce identical limbs (tests/test_torch_fe25519.py holds them to
 that). This is the plain version the CPU path and the conformance tests
-run; the CUDA kernel (csrc/ed25519_verify.cu) uses its own 51-bit limbs
-and is held to the same accept set, not to these limbs.
+run; the CUDA kernel (csrc/ed25519_verify.cu) uses its own 8 x 32-bit
+words and is held to the same accept set, not to these limbs.
 
 torch int32 wraps silently and ``>>`` on int32 is arithmetic, as in JAX;
 the bounds below are the JAX module's and keep every intermediate inside

@@ -68,25 +68,26 @@ def _raise_if(name: str, err: int) -> None:
 
 
 def b_table_niels() -> np.ndarray:
-    """[0..15]B in niels form (y+x, y-x, 2d*x*y mod p), 5 x 51-bit limbs
-    each: (16, 3, 5) uint64, the layout ed25519_verify.cu stages in shared
-    memory. Built from the port's oracle copy."""
+    """[1..8]B in niels form (y+x, y-x, 2d*x*y mod p), 8 little-endian
+    32-bit words each: (8, 3, 8) uint32, the layout ed25519_verify.cu
+    stages in shared memory (signed digits need no more entries). Built
+    from the port's oracle copy."""
     from ..crypto import ref_ed25519 as ref
     from .ed25519 import b_table_ints
 
     p = ref.P
     d2 = 2 * ref.D % p
-    out = np.zeros((16, 3, 5), np.uint64)
-    for k, (x, y, t) in enumerate(b_table_ints()):
+    out = np.zeros((8, 3, 8), np.uint32)
+    for k, (x, y, t) in enumerate(b_table_ints()[1:9]):
         for c, val in enumerate(((y + x) % p, (y - x) % p, d2 * t % p)):
-            out[k, c] = [(val >> (51 * i)) & ((1 << 51) - 1) for i in range(5)]
+            out[k, c] = [(val >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
     return out
 
 
 def _btab(device: torch.device) -> torch.Tensor:
     tab = _BTAB.get(device)
     if tab is None:
-        host = b_table_niels().view(np.int64).reshape(-1)
+        host = b_table_niels().view(np.int32).reshape(-1)
         tab = torch.from_numpy(host.copy()).to(device)
         _BTAB[device] = tab
     return tab
@@ -108,6 +109,30 @@ def ed25519_verify_cuda(a, r, s, h) -> torch.Tensor:
                  _stream(a.device))
     _raise_if("ed25519_verify", err)
     LAUNCHES["ed25519_verify"] += 1
+    return out
+
+
+def fe_op_cuda(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The verify kernel's field operation ``op`` (0 mul, 1 sq, 2 add,
+    3 sub, 4 neg, 5 freeze, 6 invert, 7 pow22523) on (n, 8) int32 words of
+    GF(2^255 - 19) elements on the card: a check of its PTX carry chains,
+    off the main path, so it counts no launches."""
+    for t in (a, b):
+        if t.device.type != "cuda" or t.dtype != torch.int32 or \
+                t.dim() != 2 or t.shape[1] != 8 or not t.is_contiguous():
+            raise ValueError("fe_op: expected contiguous (n, 8) int32 CUDA "
+                             f"words, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if a.shape != b.shape or a.device != b.device:
+        raise ValueError("fe_op: operands differ in shape or device")
+    out = torch.empty_like(a)
+    fn = _build.load("ed25519_verify.cu").fe_op_launch
+    fn.argtypes = [ctypes.c_int, _VP, _VP, _VP, ctypes.c_int, _VP]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        err = fn(op, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
+                 _stream(a.device))
+    _raise_if("fe_op", err)
     return out
 
 

@@ -25,7 +25,7 @@ from corda_tpu_torch.ops import ed25519 as ted
 from corda_tpu_torch.ops import sha512 as tsha
 
 P, L = ref.P, ref.L
-M51 = (1 << 51) - 1
+M32 = (1 << 32) - 1
 rng = np.random.default_rng(2024)
 
 
@@ -58,7 +58,8 @@ def _macro_ints(text, name):
     """Hex literals of ``#define name ...`` (continuation lines joined)."""
     for line in text.replace("\\\n", " ").splitlines():
         if line.startswith(f"#define {name} "):
-            return [int(x, 16) for x in re.findall(r"0x([0-9a-fA-F]+)ULL", line)]
+            return [int(x, 16)
+                    for x in re.findall(r"0x([0-9a-fA-F]+)U(?:LL)?", line)]
     raise AssertionError(f"no #define {name}")
 
 
@@ -68,12 +69,13 @@ def _of_limbs(limbs, radix):
 
 def test_verify_kernel_constants_match_oracle():
     text = _source("ed25519_verify.cu")
-    assert _of_limbs(_macro_ints(text, "FE_D"), 51) == ref.D
-    assert _of_limbs(_macro_ints(text, "FE_D2"), 51) == 2 * ref.D % P
-    assert _of_limbs(_macro_ints(text, "FE_SQRTM1"), 51) == ref.SQRT_M1
-    # fe_sub's offset: 4p in 51-bit limbs
-    assert "0x1fffffffffffb4ULL" in text and "0x1ffffffffffffcULL" in text
-    assert _of_limbs([0x1fffffffffffb4] + [0x1ffffffffffffc] * 4, 51) == 4 * P
+    assert _of_limbs(_macro_ints(text, "FE_D"), 32) == ref.D
+    assert _of_limbs(_macro_ints(text, "FE_D2"), 32) == 2 * ref.D % P
+    assert _of_limbs(_macro_ints(text, "FE_SQRTM1"), 32) == ref.SQRT_M1
+    # fe_sub's offset: 4p as nine 32-bit words
+    words = ([_macro_ints(text, "P4_LO")[0]] + [_macro_ints(text, "P4_MID")[0]] * 7
+             + [int(re.search(r"#define P4_TOP (\d+)U", text).group(1))])
+    assert _of_limbs(words, 32) == 4 * P
 
 
 def test_challenge_kernel_constants_match_oracle():
@@ -89,16 +91,19 @@ def test_challenge_kernel_constants_match_oracle():
     assert k == tsha.K512
 
 
-def _limbs51(vals):
-    return np.array([[(v >> (51 * i)) & M51 for i in range(5)] for v in vals],
-                    np.uint64)
+def _words(vals):
+    """Python ints < 2^256 -> (n, 8) little-endian uint32 words."""
+    return np.array([[(v >> (32 * i)) & M32 for i in range(8)] for v in vals],
+                    np.uint32)
 
 
-def _ints51(arr):
-    return [_of_limbs([int(x) for x in row], 51) for row in arr]
+def _ints(arr):
+    return [_of_limbs([int(x) for x in row], 32) for row in arr]
 
 
-EDGE = [0, 1, 2, 19, P - 1, P, P + 1, P + 18, 2**255 - 1, 2**255 - 20, 608]
+# Lazy-reduced values up to 2^256 - 1: every field op takes any 256 bits.
+EDGE = [0, 1, 2, 19, 38, P - 1, P, P + 1, P + 18, 2**255 - 1, 2**255 - 20,
+        2**255, 2 * P, 2 * P + 37, 2**256 - 38, 2**256 - 39, 2**256 - 1, 608]
 
 
 @pytest.mark.parametrize("op,name,fn", [
@@ -112,25 +117,67 @@ EDGE = [0, 1, 2, 19, P - 1, P, P + 1, P + 18, 2**255 - 1, 2**255 - 20, 608]
     (7, "pow22523", lambda a, b: pow(a, (P - 5) // 8, P)),
 ])
 def test_field_ops_match_python_ints(verify_lib, op, name, fn):
-    # Inputs are any 255-bit values (limbs < 2^51); freeze's output is
-    # compared as limbs (canonical), the others by value mod p.
-    vals_a = EDGE + [int.from_bytes(rng.bytes(32), "little") >> 1
-                     for _ in range(40)]
+    # Inputs are any 256-bit values; freeze's output is compared exactly
+    # (canonical), the others by value mod p.
+    vals_a = EDGE + [int.from_bytes(rng.bytes(32), "little") for _ in range(40)]
     vals_b = list(reversed(EDGE)) + [int.from_bytes(rng.bytes(32), "little")
-                                     >> 1 for _ in range(40)]
-    a, b = _limbs51(vals_a), _limbs51(vals_b)
-    out = np.zeros_like(a)
-    ptr = ctypes.c_void_p
-    verify_lib.fe_op_host.argtypes = [ctypes.c_int, ptr, ptr, ptr, ctypes.c_int]
-    assert verify_lib.fe_op_host(op, a.ctypes.data, b.ctypes.data,
-                                 out.ctypes.data, len(vals_a)) == 0
-    got = _ints51(out)
+                                     for _ in range(40)]
+    got = _fe_op(verify_lib, op, vals_a, vals_b)
     want = [fn(x, y) for x, y in zip(vals_a, vals_b)]
     if name == "freeze":
         assert got == want
     else:
         assert [g % P for g in got] == want
-    assert int(out.max()) < 1 << 52  # every op's output bound
+
+
+def _fe_op(verify_lib, op, vals_a, vals_b):
+    """fe_op_host over pairs of Python ints < 2^256 -> output ints."""
+    a, b = _words(vals_a), _words(vals_b)
+    out = np.zeros_like(a)
+    ptr = ctypes.c_void_p
+    verify_lib.fe_op_host.argtypes = [ctypes.c_int, ptr, ptr, ptr, ctypes.c_int]
+    assert verify_lib.fe_op_host(op, a.ctypes.data, b.ctypes.data,
+                                 out.ctypes.data, len(vals_a)) == 0
+    return _ints(out)
+
+
+@pytest.mark.parametrize("op,fn", [
+    (0, lambda a, b: a * b),
+    (2, lambda a, b: a + b),
+    (3, lambda a, b: a - b),
+], ids=["mul", "add", "sub"])
+def test_field_ops_on_every_pair_of_edge_values(verify_lib, op, fn):
+    # Every ordered pair of lazy-reduced edge values, so each carry chain
+    # meets all-ones words, a carry out of the top word and the fold's
+    # second carry from both sides.
+    pairs = [(x, y) for x in EDGE for y in EDGE]
+    got = _fe_op(verify_lib, op, [x for x, _ in pairs], [y for _, y in pairs])
+    assert [g % P for g in got] == [fn(x, y) % P for x, y in pairs]
+
+
+@pytest.mark.parametrize("name,s", [
+    ("zero", 0),
+    ("one", 1),
+    ("all_ones", 2**256 - 1),
+    ("L_minus_1", L - 1),
+    ("L", L),
+    ("S_plus_L", (2**252 + 12345) + L),
+    ("S_or_2^255", 0x1234567 | 2**255),
+    ("all_sevens", int("7" * 64, 16)),
+    ("all_eights", int("8" * 64, 16)),
+    ("random", int.from_bytes(rng.bytes(32), "little")),
+])
+def test_signed_digit_recoding(verify_lib, name, s):
+    # Digits 0..63 in -8..7 and digit 64 (the carry) in 0..1 must sum back
+    # to s over all 256 bits: S >= 2^255 and S + L are not reduced.
+    digits = np.zeros((1, 65), np.int32)
+    ptr = ctypes.c_void_p
+    verify_lib.recode_host.argtypes = [ptr, ptr, ctypes.c_int]
+    assert verify_lib.recode_host(_words([s]).ctypes.data,
+                                  digits.ctypes.data, 1) == 0
+    d = [int(x) for x in digits[0]]
+    assert all(-8 <= x <= 7 for x in d[:64]) and d[64] in (0, 1)
+    assert sum(x * 16**i for i, x in enumerate(d)) == s
 
 
 def _corpus():
@@ -150,6 +197,7 @@ def _corpus():
             cases.append((pk, msg, sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]))
             cases.append((pk, bytes(32), sig))
             cases.append((pk, msg, sig[:63] + bytes([sig[63] | 0x80])))
+            cases.append((pk, msg, sig[:32] + b"\xff" * 32))  # all-ones S
     for y in range(19):
         x = ref._recover_x(y, 0)
         if x is not None:
@@ -219,3 +267,16 @@ def test_wrappers_reject_cpu_tensors():
         kernels.ed25519_verify_cuda(words, words, words, words)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.sha512_challenge_cuda(words, words, words)
+    elems = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fe_op_cuda(0, elems, elems)
+
+
+def test_b_table_is_one_to_eight_b_in_words():
+    # kernels.b_table_niels: [1..8]B as (y+x, y-x, 2dxy) mod p in 8 words.
+    tab = kernels.b_table_niels()
+    assert tab.shape == (8, 3, 8) and tab.dtype == np.uint32
+    for k in range(1, 9):
+        x, y = ref.scalar_mult(k, ref.B)
+        want = [(y + x) % P, (y - x) % P, 2 * ref.D * x * y % P]
+        assert [_of_limbs([int(w) for w in c], 32) for c in tab[k - 1]] == want
