@@ -8,21 +8,42 @@ this checkout):
 Phases, in order; any failure exits non-zero and prints no result:
   1. probe    -- a CUDA device must exist; print its name and power limit.
   2. build    -- compile both kernels from csrc/ with nvcc (in parallel).
-  3. kernels  -- the verify kernel's field operations (its PTX carry
+  3. host     -- (a) build the host tier's native core (gcc, libcrypto);
+                 CpuVerifier against the oracle on the golden corpus,
+                 including the S + L lane the native core rejects.
+  4. kernels  -- the verify kernel's field operations (its PTX carry
                  chains) on the card against Python integers; each kernel
                  against its plain PyTorch version on the card
                  on the golden corpus (valid, corrupted, S + L, non-canonical
                  A and R, an invalid point, all-zero lanes) at N = 1024 and
                  a ragged N = 1000, and the challenge against hashlib.
-  4. main     -- 65,536 VerifyJobs with 32-byte tx ids through
-                 TorchVerifier.verify_batch (pack -> challenge kernel ->
-                 verify kernel), answers held to the oracle; one batch of
-                 variable-length messages (host-hashed); kernel and
-                 plain-version timings at that size.
-  5. sidecar  -- a SidecarServer on the card, three client threads sending
+  5. main     -- 65,536 VerifyJobs with 32-byte tx ids through
+                 TorchVerifier.verify_batch (native pack -> challenge kernel
+                 -> verify kernel), answers held to the oracle; one batch of
+                 variable-length messages (host-hashed); (b) the native and
+                 numpy packers timed on the same inputs, byte-equal; kernel
+                 times in a device-side window (behind a queued delay, so
+                 the host's launch is outside it), and each wrapper's host
+                 cost per call.
+  6. crossover -- (c) all-valid tx-id batches of 1 .. 4,096 through
+                 CpuVerifier and TorchVerifier(device_min_sigs=0): the
+                 smallest size at which the card wins, beside the
+                 provider's default; the host tier's cost split into the
+                 timer, one native verify, libcrypto's per-signature cost on
+                 one thread and the Python around it.
+  7. stream   -- (d) verify_stream at depth 2 over 8 batches of 65,536
+                 against 8 sequential verify_batch calls, answers held to
+                 the oracle; sustained sigs/s and the device's idle share.
+  8. sidecar  -- a SidecarServer on the card, three client threads sending
                  2,048-signature requests (one with a tampered job, one with
-                 a malformed key); every reply held to the oracle.
-  6. the verify kernel's registers, static SASS counts, resident blocks
+                 a malformed key); (e) then one request alone, one
+                 signature under the crossover, which the host tier must
+                 answer (reply tier 0). Every reply held to the oracle.
+  9. degrade  -- (f) degrade_device on a card verifier: a batch of 1,024,
+                 above the crossover, takes the host tier; the re-probe
+                 reopens the
+                 gate through the kernels; the next batch is a device batch.
+ 10. the verify kernel's registers, static SASS counts, resident blocks
      per SM and waves at N_MAIN; the kernels line, then the device line
      (last).
 
@@ -105,9 +126,45 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(fn, reps: int = 7) -> float:
+# A device-side delay queued before each timing window: ~5 ms at 1.98 GHz,
+# far longer than any wrapper's enqueue (tens of microseconds).
+DELAY_CYCLES = 10_000_000
+
+
+def kernel_ms(fn, reps: int = 7) -> float:
+    """Median device milliseconds of ``fn`` over ``reps`` runs after one
+    warm-up. Each window opens behind a queued device-side delay, so the
+    host enqueues the start event, ``fn`` and the end event while the
+    stream is still busy and the window holds only the device's work.
+    Fails if an enqueue outlasted the delay (the window would then hold
+    host time)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        torch.cuda._sleep(DELAY_CYCLES)
+        ev[1].record()
+        fn()
+        ev[2].record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        delay_ms = ev[0].elapsed_time(ev[1])
+        check(enqueue_ms < delay_ms,
+              f"host enqueue took {enqueue_ms:.3f} ms, longer than the "
+              f"device delay of {delay_ms:.3f} ms: the window holds host time")
+        times.append(ev[1].elapsed_time(ev[2]))
+    return statistics.median(times)
+
+
+def idle_stream_ms(fn, reps: int = 7) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs after one warm-up,
-    each run bracketed by CUDA events."""
+    each bracketed by CUDA events recorded on an idle stream: the window
+    also holds the host's launch of ``fn`` (its Python). Used for the plain
+    versions, which are bound by their thousands of launches and cannot
+    be queued behind kernel_ms's delay."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -120,6 +177,20 @@ def cuda_ms(fn, reps: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def wrapper_host_us(fn, calls: int) -> float:
+    """Host-clock microseconds per call of ``fn`` over ``calls`` calls in a
+    row, with no synchronisation inside the window: what a caller's thread
+    spends to launch (checks, allocation, the ctypes call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def wnaf5(x: int) -> tuple[int, int]:
@@ -340,10 +411,51 @@ def main_jobs(ref, provider, rng):
     return jobs, want, tuples, expect
 
 
-def phase_main(ref, provider, ted, tsha, kernels, dev, rng, card):
-    """Phase 4: the main path at full size, then its timings."""
+def phase_host_tier(ref, provider, native, fast_ed25519):
+    """Phase 3 (a): build the native core on this host and hold CpuVerifier
+    to the oracle on the golden corpus, including the S + L lane that
+    libcrypto rejects (S >= L) and the oracle accepts."""
+    import sysconfig
+
+    include = sysconfig.get_paths()["include"]
+    t0 = time.perf_counter()
+    core = native.load_cverify()
+    load_s = time.perf_counter() - t0
+    check(core is not None,
+          f"native core did not build (Python.h in {include}: "
+          f"{os.path.exists(os.path.join(include, 'Python.h'))}, libcrypto "
+          f"{native._libcrypto_path()}): the host tier would be the oracle")
+    log(f"native core: gcc {native.BUILD_SECONDS.get('_cverify', 0.0):.2f} s "
+        f"(load {load_s:.2f} s) -> {core.__file__}; Python.h from {include}; "
+        f"libcrypto {native._libcrypto_path()}; OpenSSL re-check path "
+        f"(cryptography) {'on' if fast_ed25519.available() else 'off'}")
+    cases = golden_cases(ref, np.random.default_rng(SEED + 1))
+    expect = [ref.verify(*c) for c in cases]
+    got = provider.CpuVerifier().verify_batch(
+        [provider.VerifyJob(*c) for c in cases])
+    check(got.tolist() == expect, "CpuVerifier != oracle on the golden corpus")
+    raw = core.verify_many(*([c[k] for c in cases] for k in range(3)))
+    s_plus_l = 1  # golden_cases' second case
+    check(expect[s_plus_l] and raw[s_plus_l] == 0 and got[s_plus_l],
+          "the S + L lane: the oracle must accept it, libcrypto reject it "
+          "and CpuVerifier accept it")
+    check(all(expect[i] for i in range(len(cases)) if raw[i]),
+          "the native core accepted a lane the oracle rejects")
+    log(f"host tier: CpuVerifier = oracle on {len(cases)} golden cases "
+        f"({sum(expect)} valid; the S + L lane rejected natively, accepted "
+        f"through the oracle)")
+    return {"native_build_s": native.BUILD_SECONDS.get("_cverify"),
+            "native_path": core.__file__, "python_include": include,
+            "libcrypto": native._libcrypto_path(),
+            "openssl_recheck": fast_ed25519.available()}
+
+
+def phase_main(ref, provider, native, ted, tsha, kernels, dev, rng, card):
+    """Phase 5: the main path at full size, then its timings."""
     jobs, want, tuples, expect = main_jobs(ref, provider, rng)
     verifier = provider.TorchVerifier(device="cuda")
+    check(native.pack_backend() == "native",
+          "the main path would pack with numpy: the native core is missing")
 
     kernels.reset_launches()
     got = verifier.verify_batch(jobs)
@@ -354,9 +466,11 @@ def phase_main(ref, provider, ted, tsha, kernels, dev, rng, card):
           f"main path != oracle on {int((got != want).sum())} lanes")
     check(launches["ed25519_verify"] > 0 and launches["sha512_challenge"] > 0,
           f"main path did not launch both kernels: {launches}")
+    check(verifier.device_batches == 1 and verifier.host_batches == 0,
+          "the main path's batch did not take the device")
     log(f"main path: {N_MAIN} sigs match the oracle "
         f"({int(want.sum())} valid, {int((~want).sum())} tampered); "
-        f"launches {launches}")
+        f"launches {launches}; packer {native.pack_backend()}")
 
     # Variable-length messages take the host-hashed path (verify kernel only).
     var = []
@@ -372,20 +486,37 @@ def phase_main(ref, provider, ted, tsha, kernels, dev, rng, card):
     var_got = verifier.verify_batch(var_jobs)
     check(var_got.tolist() == [var_expect[i % 16] for i in range(512)],
           "host-hashed path != oracle")
+    check(verifier.device_batches == 2, "the host-hashed batch took the host")
     log("host-hashed path: 512 sigs with variable-length messages match")
 
-    # Timings at the main path's shapes.
+    # (b) Packing: the native packer (the main path's) against numpy.
     pks = [j.pubkey for j in jobs]
     msgs = [j.message for j in jobs]
     sigs = [j.sig for j in jobs]
-    pack_ms = host_ms(lambda: ted.precompute_batch_device(pks, msgs, sigs,
-                                                          bucket=N_MAIN))
-    (a, r, s, m), _ = ted.precompute_batch_device(pks, msgs, sigs,
-                                                  bucket=N_MAIN)
-    A, R, S, M = (ted.words_to_tensor(w, dev) for w in (a, r, s, m))
+    native_words, _ = ted.precompute_batch_device(pks, msgs, sigs, N_MAIN)
+    numpy_words, _ = ted.precompute_batch_device_numpy(pks, msgs, sigs, N_MAIN)
+    check(all(x.tobytes() == y.tobytes()
+              for x, y in zip(native_words, numpy_words)),
+          "native and numpy packers differ at N=65536")
+    pack_ms, pack_numpy_ms = [], []
+    for turn in range(6):  # in turns: numpy, native, native, numpy, ...
+        fn, out = ((ted.precompute_batch_device_numpy, pack_numpy_ms)
+                   if turn % 4 in (0, 3) else
+                   (ted.precompute_batch_device, pack_ms))
+        out.append(host_ms(lambda: fn(pks, msgs, sigs, N_MAIN), reps=1))
+    pack_ms, pack_numpy_ms = (statistics.median(x)
+                              for x in (pack_ms, pack_numpy_ms))
+
+    # Kernel times at the main path's shapes in the device-side window, and
+    # each wrapper's host cost per call.
+    A, R, S, M = (ted.words_to_tensor(w, dev) for w in native_words)
     h = kernels.sha512_challenge_cuda(R, A, M)
-    k2_ms = cuda_ms(lambda: kernels.sha512_challenge_cuda(R, A, M))
-    k1_ms = cuda_ms(lambda: kernels.ed25519_verify_cuda(A, R, S, h))
+    k2_ms = kernel_ms(lambda: kernels.sha512_challenge_cuda(R, A, M))
+    k1_ms = kernel_ms(lambda: kernels.ed25519_verify_cuda(A, R, S, h))
+    k2_host_us = wrapper_host_us(
+        lambda: kernels.sha512_challenge_cuda(R, A, M), calls=200)
+    k1_host_us = wrapper_host_us(
+        lambda: kernels.ed25519_verify_cuda(A, R, S, h), calls=20)
     least_ops, least_per_sig = verify_least_int_ops(
         *(t.cpu().numpy().view(np.uint32) for t in (S, h)))
 
@@ -397,24 +528,173 @@ def phase_main(ref, provider, ted, tsha, kernels, dev, rng, card):
     ok_p = ted.verify_arrays_reference(A, R, S, h)
     torch.cuda.synchronize()
     check(torch.equal(ok_k.bool(), ok_p), "verify kernel != plain at N=65536")
-    p2_ms = cuda_ms(lambda: tsha.challenge_words_reference(R, A, M), reps=3)
-    p1_ms = cuda_ms(lambda: ted.verify_arrays_reference(A, R, S, h), reps=2)
+    p2_ms = idle_stream_ms(lambda: tsha.challenge_words_reference(R, A, M),
+                           reps=3)
+    p1_ms = idle_stream_ms(lambda: ted.verify_arrays_reference(A, R, S, h),
+                           reps=2)
 
     e2e_ms = host_ms(lambda: verifier.verify_batch(jobs), reps=3)
-    log(f"{card} | timings at N={N_MAIN}: pack {pack_ms:.3f} ms, challenge kernel "
-        f"{k2_ms:.4f} ms (plain {p2_ms:.1f} ms), verify kernel {k1_ms:.3f} ms "
-        f"(plain {p1_ms:.1f} ms), end to end {e2e_ms:.1f} ms = "
-        f"{N_MAIN / (e2e_ms / 1e3):.0f} sigs/s")
+    idle = 1 - (k1_ms + k2_ms) / e2e_ms
+    log(f"{card} | timings at N={N_MAIN}: pack native {pack_ms:.3f} ms / "
+        f"numpy {pack_numpy_ms:.3f} ms; challenge kernel {k2_ms:.4f} ms "
+        f"(wrapper {k2_host_us:.1f} us/call on the host, plain "
+        f"{p2_ms:.1f} ms); verify kernel {k1_ms:.4f} ms (wrapper "
+        f"{k1_host_us:.1f} us/call, plain {p1_ms:.1f} ms); end to end "
+        f"{e2e_ms:.1f} ms = {N_MAIN / (e2e_ms / 1e3):.0f} sigs/s, device "
+        f"idle {idle:.3f}")
     return {
-        "launches": launches, "pack_ms": pack_ms, "k1_ms": k1_ms,
-        "k2_ms": k2_ms, "p1_ms": p1_ms, "p2_ms": p2_ms, "e2e_ms": e2e_ms,
-        "e2e_sigs_s": N_MAIN / (e2e_ms / 1e3),
+        "launches": launches, "pack_backend": native.pack_backend(),
+        "pack_ms": pack_ms, "pack_numpy_ms": pack_numpy_ms,
+        "k1_ms": k1_ms, "k2_ms": k2_ms,
+        "k1_wrapper_host_us": k1_host_us, "k2_wrapper_host_us": k2_host_us,
+        "p1_ms": p1_ms, "p2_ms": p2_ms, "e2e_ms": e2e_ms,
+        "e2e_sigs_s": N_MAIN / (e2e_ms / 1e3), "device_idle_share": idle,
         "verify_least_int_ops": least_ops,
         "verify_least_per_sig": least_per_sig,
         "max_err": {
             "ed25519_verify": int((ok_k.long() - ok_p.long()).abs().max()),
             "sha512_challenge": int((h.long() - h_p.long()).abs().max())},
-    }, jobs, want
+    }, jobs, want, tuples, expect
+
+
+# 1 .. 4,096: the sweep that sets DEVICE_MIN_SIGS_DEFAULT (crypto/provider.py)
+# reaches down to a single signature.
+CROSSOVER_SIZES = (1, 4, 16, 64, 128, 256, 512, 1024, 2048, 4096)
+# Under _cverify.c's PAR_MIN (64) verify_many runs on one thread.
+ONE_THREAD_SIGS = 32
+
+
+def libcrypto_version(native) -> str:
+    """OpenSSL_version(OPENSSL_VERSION) of the libcrypto the core links."""
+    lib = ctypes.CDLL(native._libcrypto_path())
+    lib.OpenSSL_version.restype = ctypes.c_char_p
+    lib.OpenSSL_version.argtypes = [ctypes.c_int]
+    return lib.OpenSSL_version(0).decode()
+
+
+def host_tier_split(provider, native, fast_ed25519, tuples) -> dict:
+    """Where the host tier's time goes for one signature, host-clock
+    medians of 21 (each run ends in torch.cuda.synchronize, as host_ms
+    does): the timer alone, one native verify_many call, libcrypto's cost
+    per signature on one thread, the OpenSSL path through
+    ``cryptography`` for one signature, and CpuVerifier whole."""
+    core = native.load_cverify()
+    one = [tuples[0]]
+    cols1 = [[t[k] for t in one] for k in range(3)]
+    many = [tuples[i % N_DISTINCT] for i in range(ONE_THREAD_SIGS)]
+    cols = [[t[k] for t in many] for k in range(3)]
+    jobs1 = [provider.VerifyJob(*one[0])]
+    cpu = provider.CpuVerifier()
+    return {
+        "timer_ms": host_ms(lambda: None, reps=21),
+        "native_1_ms": host_ms(lambda: core.verify_many(*cols1), reps=21),
+        "native_per_sig_1_thread_ms": host_ms(
+            lambda: core.verify_many(*cols), reps=21) / ONE_THREAD_SIGS,
+        "cryptography_1_ms": (host_ms(
+            lambda: fast_ed25519.verify(*one[0]), reps=21)
+            if fast_ed25519.available() else None),
+        "cpu_verifier_1_ms": host_ms(lambda: cpu.verify_batch(jobs1), reps=21),
+        "libcrypto": libcrypto_version(native),
+    }
+
+
+def phase_crossover(provider, native, fast_ed25519, kernels, tuples, card):
+    """Phase 6 (c): all-valid tx-id batches through the host tier and the
+    card (device_min_sigs=0), medians on the host clock; the smallest size
+    at which the card wins, beside the provider's default; then where the
+    host tier's time goes for one signature."""
+    cpu = provider.CpuVerifier()
+    card_v = provider.TorchVerifier(device="cuda", device_min_sigs=0)
+    rows = []
+    for n in CROSSOVER_SIZES:
+        jobs = [provider.VerifyJob(*tuples[i % N_DISTINCT]) for i in range(n)]
+        kernels.reset_launches()
+        check(card_v.verify_batch(jobs).all() and cpu.verify_batch(jobs).all(),
+              f"crossover batch of {n} != oracle (all valid)")
+        check(min(kernels.LAUNCHES.values()) > 0,
+              f"the card's batch of {n} did not launch both kernels")
+        cpu_ms = host_ms(lambda: cpu.verify_batch(jobs), reps=5)
+        card_ms = host_ms(lambda: card_v.verify_batch(jobs), reps=5)
+        rows.append({"n": n, "cpu_ms": cpu_ms, "card_ms": card_ms})
+    wins = [r["n"] for r in rows if r["card_ms"] < r["cpu_ms"]]
+    crossover = wins[0] if wins else None
+    log(f"{card} | crossover (host clock, medians of 5): " + "; ".join(
+        f"{r['n']}: host {r['cpu_ms']:.3f} ms / card {r['card_ms']:.3f} ms"
+        for r in rows) + f" -> the card wins from {crossover} "
+        f"(DEVICE_MIN_SIGS_DEFAULT {provider.DEVICE_MIN_SIGS_DEFAULT})")
+    split = host_tier_split(provider, native, fast_ed25519, tuples)
+    log(f"{card} | host tier for 1 signature (host clock, medians of 21): "
+        f"CpuVerifier {split['cpu_verifier_1_ms']:.3f} ms = timer "
+        f"{split['timer_ms']:.3f} ms + native verify_many "
+        f"{split['native_1_ms'] - split['timer_ms']:.3f} ms + Python "
+        f"{split['cpu_verifier_1_ms'] - split['native_1_ms']:.3f} ms; "
+        f"libcrypto on one thread "
+        f"{split['native_per_sig_1_thread_ms']:.3f} ms a signature "
+        f"(verify_many of {ONE_THREAD_SIGS}); through cryptography "
+        + (f"{split['cryptography_1_ms']:.3f} ms"
+           if split["cryptography_1_ms"] is not None else "not installed")
+        + f"; {split['libcrypto']}")
+    return {"rows": rows, "crossover": crossover, "card_wins_at": wins,
+            "default": provider.DEVICE_MIN_SIGS_DEFAULT,
+            "host_tier_1_sig": split}
+
+
+STREAM_BATCHES = 8
+
+
+def phase_stream(ted, kernels, tuples, expect, main_res, card):
+    """Phase 7 (d): verify_stream at depth 2 over 8 batches of N_MAIN
+    against 8 sequential verify_batch calls on the same batches, in turns
+    (stream, sequential, sequential, stream); every answer held to the
+    oracle."""
+    rng = np.random.default_rng(SEED + 2)
+    n_tamper = int(N_MAIN * TAMPER_FRACTION)
+    batches, wants = [], []
+    for _ in range(STREAM_BATCHES):
+        idx = np.arange(N_MAIN) % N_DISTINCT
+        pos = rng.choice(N_MAIN, n_tamper, replace=False)
+        idx[pos] = N_DISTINCT + rng.integers(0, len(tuples) - N_DISTINCT,
+                                             n_tamper)
+        batches.append(tuple([tuples[i][k] for i in idx] for k in range(3)))
+        wants.append(np.array([expect[i] for i in idx], bool))
+    total = STREAM_BATCHES * N_MAIN
+
+    def stream():
+        return list(ted.verify_stream(batches, device="cuda", depth=2))
+
+    def sequential():
+        return [ted.verify_batch(*b, device="cuda") for b in batches]
+
+    walls = {"stream": [], "sequential": []}
+    launches = None
+    for turn, name in enumerate(("stream", "sequential", "sequential",
+                                 "stream")):
+        fn = stream if name == "stream" else sequential
+        if turn == 0:
+            kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs = fn()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+        if turn == 0:
+            launches = dict(kernels.LAUNCHES)
+        check(len(outs) == STREAM_BATCHES and all(
+            np.array_equal(o, w) for o, w in zip(outs, wants)),
+            f"{name} answers != oracle")
+    check(launches == {"ed25519_verify": STREAM_BATCHES,
+                       "sha512_challenge": STREAM_BATCHES},
+          f"the stream did not launch each kernel once a batch: {launches}")
+    busy = main_res["k1_ms"] * launches["ed25519_verify"] \
+        + main_res["k2_ms"] * launches["sha512_challenge"]
+    rate = {k: [total / (w / 1e3) for w in v] for k, v in walls.items()}
+    idle = [1 - busy / w for w in walls["stream"]]
+    log(f"{card} | stream: {STREAM_BATCHES} x {N_MAIN} sigs match the oracle; "
+        f"verify_stream depth 2 {rate['stream'][0]:.0f} / "
+        f"{rate['stream'][1]:.0f} sigs/s against sequential verify_batch "
+        f"{rate['sequential'][0]:.0f} / {rate['sequential'][1]:.0f} sigs/s; "
+        f"device idle {idle[0]:.3f} / {idle[1]:.3f} of the stream's wall; "
+        f"launches {launches}")
+    return {"wall_ms": walls, "sigs_s": rate, "device_idle_share": idle,
+            "launches": launches}
 
 
 def sidecar_address() -> tuple[str, str | None]:
@@ -425,8 +705,27 @@ def sidecar_address() -> tuple[str, str | None]:
     return "127.0.0.1:0", tmp  # socket path too long: use localhost TCP
 
 
+def request_tier(sidecar, address, jobs, req_id):
+    """One OP_VERIFY round trip -> (reply tier, answers)."""
+    sock = sidecar.connect(address, timeout=120.0)
+    try:
+        sidecar.send_frame(sock, sidecar.encode_verify_request(req_id, jobs))
+        reply = sidecar.recv_frame(sock)
+    finally:
+        sock.close()
+    _op, rid, status, tier, _w, _v = sidecar._VERIFY_REPLY_HDR.unpack_from(
+        reply)
+    check(rid == req_id and status == sidecar.STATUS_OK,
+          f"sidecar request {req_id}: status {status}")
+    body = reply[sidecar._VERIFY_REPLY_HDR.size:]
+    return tier, np.frombuffer(body, np.uint8).astype(bool)
+
+
 def phase_sidecar(provider, sidecar, kernels, jobs, want):
-    """Phase 5: three clients through one SidecarServer on the card."""
+    """Phase 8: three clients through one SidecarServer on the card, then
+    (e) one small request alone, which the host tier answers."""
+    n_small = provider.DEVICE_MIN_SIGS_DEFAULT - 1
+    check(n_small >= 1, "DEVICE_MIN_SIGS_DEFAULT routes no batch to the host")
     address, tmp = sidecar_address()
     server = sidecar.SidecarServer(address, device="cuda", coalesce_us=20000,
                                    max_sigs=4096)
@@ -474,6 +773,10 @@ def phase_sidecar(provider, sidecar, kernels, jobs, want):
             t.start()
         for t in threads:
             t.join(timeout=300)
+        launches = dict(kernels.LAUNCHES)
+        # (e) one request alone, under the crossover: the host tier.
+        small_tier, small_got = request_tier(sidecar, server.address,
+                                             jobs[:n_small], 77)
         stats = sidecar.fetch_stats(server.address)
         qos = sidecar.connect(server.address, timeout=30.0)
         try:
@@ -489,22 +792,66 @@ def phase_sidecar(provider, sidecar, kernels, jobs, want):
                 os.rmdir(tmp)
             except OSError:
                 pass
-    launches = dict(kernels.LAUNCHES)
     check(not errors, "; ".join(errors))
     check(not any(t.is_alive() for t in threads), "sidecar client hung")
     check(sidecar._VERIFY_REPLY_HDR.unpack_from(reply)[2] == sidecar.STATUS_ERR,
           "OP_VERIFY_QOS did not get STATUS_ERR")
-    check(stats["requests"] == 3 * reqs_per_client, f"stats: {stats}")
+    check(np.array_equal(small_got, want[:n_small]),
+          f"the {n_small}-signature request != oracle")
+    check(small_tier == 0 and stats["host_batches"] >= 1,
+          f"the {n_small}-signature request was not host-routed: tier "
+          f"{small_tier}, stats {stats}")
+    check(stats["requests"] == 3 * reqs_per_client + 1, f"stats: {stats}")
     check(stats["device_batches"] and stats["cross_request_batches"] > 0,
           f"no merged device batches: {stats}")
     check(stats["kernel_backend"] == "cuda", f"stats: {stats}")
     check(launches["ed25519_verify"] > 0 and launches["sha512_challenge"] > 0,
           f"sidecar did not launch both kernels: {launches}")
-    log(f"sidecar: {stats['requests']} requests from 3 clients match the "
+    log(f"sidecar: {3 * reqs_per_client} requests from 3 clients match the "
         f"oracle; batches {stats['batches']} (merged "
         f"{stats['cross_request_batches']}), hist {stats['batch_sigs_hist']}, "
-        f"pad_lanes {stats['pad_lanes']}, launches {launches}")
+        f"pad_lanes {stats['pad_lanes']}, launches {launches}; one "
+        f"{n_small}-signature request answered by the host tier (tier "
+        f"{small_tier}, host_batches {stats['host_batches']}, "
+        f"device_min_sigs {stats['device_min_sigs']})")
     return stats, launches
+
+
+def phase_degrade(provider, kernels, jobs, want):
+    """Phase 9 (f): degrade a card verifier; a batch of 1,024, above the
+    crossover, takes the host tier and matches the oracle; the re-probe
+    reopens the gate through the kernels; the next batch is a device
+    batch."""
+    v = provider.TorchVerifier(device="cuda")
+    n = 1024
+    check(n >= v.device_min_sigs, "the degrade batch is under the crossover")
+    batch, batch_want = jobs[:n], want[:n]
+    kernels.reset_launches()
+    check(provider.degrade_device(v, cooldown_s=0.2), "degrade_device refused")
+    got = v.verify_batch(batch)
+    check((v.host_batches, v.device_batches) == (1, 0),
+          "a batch above the crossover did not take the host tier while "
+          "degraded")
+    check(np.array_equal(got, batch_want), "degraded host answers != oracle")
+    deadline = time.monotonic() + 60
+    while not v.device_gate.is_set() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    probe_launches = dict(kernels.LAUNCHES)
+    check(v.device_gate.is_set() and v.reprobes_ok == 1
+          and v.reprobes_failed == 0,
+          f"the re-probe did not reopen the gate (ok {v.reprobes_ok}, "
+          f"failed {v.reprobes_failed})")
+    check(min(probe_launches.values()) > 0,
+          f"the re-probe did not run the kernels: {probe_launches}")
+    got = v.verify_batch(batch)
+    check((v.host_batches, v.device_batches) == (1, 1)
+          and np.array_equal(got, batch_want),
+          "after the re-probe the batch was not a device batch = oracle")
+    log(f"degrade: {n} sigs on the host tier while degraded (= oracle); the "
+        f"re-probe reopened the gate through the kernels ({probe_launches}); "
+        f"the next batch ran on the card (= oracle)")
+    return {"n": n, "probe_launches": probe_launches}
 
 
 def sass_instructions(nvcc: str, lib: str, kernel: str) -> list[tuple]:
@@ -607,7 +954,9 @@ def out_dir() -> str:
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
-    from corda_tpu_torch.crypto import provider, ref_ed25519 as ref, sidecar
+    from corda_tpu_torch import native
+    from corda_tpu_torch.crypto import fast_ed25519, provider, sidecar
+    from corda_tpu_torch.crypto import ref_ed25519 as ref
     from corda_tpu_torch.ops import _build, kernels
     from corda_tpu_torch.ops import ed25519 as ted
     from corda_tpu_torch.ops import sha512 as tsha
@@ -649,23 +998,32 @@ def main() -> int:
         f"{occ['threads']} per SM x {occ['sms']} SMs; N={N_MAIN} is "
         f"{occ['grid']} blocks = {occ['waves']} wave(s)")
 
+    # 3. the host tier's native core
+    host_res = phase_host_tier(ref, provider, native, fast_ed25519)
+
     zero_ok = ref.verify(bytes(32), bytes(32), bytes(64))
 
-    # 3. field ops on the card, kernels vs plain versions
+    # 4. field ops on the card, kernels vs plain versions
     phase_field_ops(ref, kernels, dev, rng)
     max_err = phase_kernels(ref, ted, tsha, kernels, dev, rng, zero_ok)
 
-    # 4. main path at full size
-    main_res, jobs, want = phase_main(ref, provider, ted, tsha, kernels, dev,
-                                      rng, card)
+    # 5. main path at full size
+    main_res, jobs, want, tuples, expect = phase_main(
+        ref, provider, native, ted, tsha, kernels, dev, rng, card)
     for k, v in main_res["max_err"].items():
         max_err[k] = max(max_err[k], v)
 
-    # 5. sidecar
+    # 6. size crossover, 7. stream
+    cross_res = phase_crossover(provider, native, fast_ed25519, kernels,
+                                tuples, card)
+    stream_res = phase_stream(ted, kernels, tuples, expect, main_res, card)
+
+    # 8. sidecar, 9. degrade and re-probe
     stats, side_launches = phase_sidecar(provider, sidecar, kernels, jobs,
                                          want)
+    degrade_res = phase_degrade(provider, kernels, jobs, want)
 
-    # 6. kernels line
+    # 10. kernels line
     bound1, by1 = bound_ms(N_MAIN * VERIFY_BYTES,
                            main_res["verify_least_int_ops"])
     bound2, by2 = bound_ms(N_MAIN * CHALLENGE_BYTES,
@@ -675,6 +1033,12 @@ def main() -> int:
     log(f"verify bound: {bound1:.4f} ms for the least work of these scalars "
         f"({main_res['verify_least_per_sig']} per signature); the kernel's "
         f"fixed windows {bound_ms(0, structure_ops)[0]:.4f} ms")
+    for name, k_ms, b_ms in (("verify", main_res["k1_ms"], bound1),
+                             ("challenge", main_res["k2_ms"], bound2)):
+        log(f"{card} | {name} kernel {k_ms:.4f} ms = {b_ms / k_ms:.1%} of its "
+            f"bound {b_ms:.4f} ms: "
+            + ("at least half of it" if b_ms / k_ms >= 0.5
+               else "under half of it"))
     line = {"kernels": [
         {"name": "ed25519_verify", "route": "cuda",
          "source": "corda_tpu_torch/ops/csrc/ed25519_verify.cu",
@@ -692,8 +1056,10 @@ def main() -> int:
          "bound_ms": bound2, "bound_by": by2, "library_ms": None},
     ]}
     record = {"card": card, "build_s": build_s, "n_main": N_MAIN,
-              "main": main_res, "sidecar_stats": stats,
-              "sidecar_launches": side_launches,
+              "host_tier": host_res, "main": main_res,
+              "crossover": cross_res, "stream": stream_res,
+              "sidecar_stats": stats, "sidecar_launches": side_launches,
+              "degrade": degrade_res,
               "ptxas": {s: ptxas_summary(_build, s) for s in _build.SOURCES},
               "sass_sha512_challenge": sass2,
               "challenge_least_int_ops": CHALLENGE_INT_OPS,

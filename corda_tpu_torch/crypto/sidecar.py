@@ -13,9 +13,13 @@ Server structure:
   scheduler thread -- holds the queue open from the OLDEST pending request
                       for up to coalesce_us, flushing early when pending
                       sigs reach max_sigs; whole requests only. It then runs
-                      the host half of the device dispatch (pack_device).
-  executor thread  -- runs verify_packed on the card and splits the answers
-                      per request.
+                      the host half of the device dispatch (pack_device),
+                      which returns None for a batch the verifier routes to
+                      its host tier (under device_min_sigs, gate closed,
+                      mixed schemes, nothing well-formed).
+  executor thread  -- runs verify_packed on the card, or verify_batch for a
+                      batch that was not packed, and splits the answers per
+                      request.
   depth-N buffering: a BoundedSemaphore(depth) between scheduler and
                       executor lets batch N+1 pack while batch N runs.
 
@@ -25,7 +29,8 @@ host:port):
   request  := u8(op) u32(req_id) body
   OP_VERIFY  body:  u32(n)  pubkeys n*32  sigs n*64  u32 msg_len[n]  msgs
   OP_VERIFY  reply: u8(op) u32(req_id) u8(status) u8(tier)
-                    f32(wait_s) f32(verify_s)  u8 ok[n]     (tier: 1=device)
+                    f32(wait_s) f32(verify_s)  u8 ok[n]
+                    (tier: 1 = the batch ran on the device, 0 = host tier)
   OP_STATS   reply: u8(op) u32(req_id) u8(status)  json(stats) utf-8
   OP_PING    reply: u8(op) u32(req_id) u8(status)
 OP_VERIFY_QOS (QoS lanes) and OP_METRICS (Prometheus text) are not served
@@ -270,14 +275,22 @@ _STOP = object()
 
 class SidecarServer:
     """The per-host verification server; it owns the card through its
-    verifier (default ``TorchVerifier(device)``)."""
+    verifier (default ``TorchVerifier(device)``). ``device_min_sigs``, when
+    given, is passed to the TorchVerifier the server builds (its size
+    crossover); a caller that brings its own verifier sets it there."""
 
     def __init__(self, address: str, verifier=None, device: str = "cuda",
                  coalesce_us: int = 2000, max_sigs: int = 4096,
-                 depth: int = 2):
+                 depth: int = 2, device_min_sigs: int | None = None):
         self.address = address
-        self.verifier = verifier if verifier is not None \
-            else TorchVerifier(device=device)
+        if verifier is None:
+            kw = ({} if device_min_sigs is None
+                  else {"device_min_sigs": device_min_sigs})
+            verifier = TorchVerifier(device=device, **kw)
+        elif device_min_sigs is not None:
+            raise ValueError("device_min_sigs applies to the verifier the "
+                             "server builds: set it on the verifier passed in")
+        self.verifier = verifier
         self.coalesce_us = int(coalesce_us)
         self.max_sigs = int(max_sigs)
         self.depth = int(depth)
@@ -481,17 +494,21 @@ class SidecarServer:
             if item is _STOP:
                 return
             batch, jobs, packed, err, pack_s = item
+            before_dev = getattr(self.verifier, "device_batches", 0) or 0
             t0 = time.perf_counter()
             ok = None
             if err is None:
                 try:
                     ok = (self.verifier.verify_packed(packed)
                           if packed is not None
-                          else np.zeros(len(jobs), bool))
+                          else self.verifier.verify_batch(jobs))
                 except Exception as exc:  # noqa: BLE001 -- ERR reply
                     err = exc
             verify_s = time.perf_counter() - t0
-            tier = 1 if packed is not None and err is None else 0
+            # The tier that served the batch: the device ran it iff the
+            # verifier counted a device batch for it.
+            tier = 1 if err is None and (getattr(
+                self.verifier, "device_batches", 0) or 0) > before_dev else 0
             with self._lock:
                 self.batches += 1
                 self.sigs += len(jobs)
@@ -543,6 +560,8 @@ class SidecarServer:
                 "unsupported_ops": self.unsupported_ops,
                 "batch_sigs_hist": hist,
                 "device_batches": getattr(v, "device_batches", None),
+                "host_batches": getattr(v, "host_batches", None),
+                "device_min_sigs": getattr(v, "device_min_sigs", None),
                 "packed_batches": self.packed_batches,
                 "pack_s_total": round(self.pack_s_total, 6),
                 # The port packs each batch to its exact size (the kernels
@@ -572,10 +591,16 @@ def main(argv: Sequence[str] | None = None) -> int:
                              "signatures")
     parser.add_argument("--depth", type=int, default=2,
                         help="batches formed-or-in-flight (double buffer)")
+    parser.add_argument("--device-min-sigs", type=int, default=None,
+                        help="size crossover of the server's verifier: "
+                             "coalesced batches under this many sigs take "
+                             "the host tier (0 = always the device; default: "
+                             "the provider's measured crossover)")
     args = parser.parse_args(argv)
     server = SidecarServer(args.socket, device=args.device,
                            coalesce_us=args.coalesce_us,
-                           max_sigs=args.max_sigs, depth=args.depth)
+                           max_sigs=args.max_sigs, depth=args.depth,
+                           device_min_sigs=args.device_min_sigs)
     server.start()
     print(f"sidecar up at {server.address}", flush=True)
     try:

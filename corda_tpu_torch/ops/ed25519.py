@@ -23,6 +23,7 @@ fails to build or launch raises.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 
 import numpy as np
@@ -306,8 +307,27 @@ def precompute_batch(pubkeys, msgs, sigs, bucket: int | None = None):
 def precompute_batch_device(pubkeys, msgs, sigs, bucket: int | None = None):
     """Host packing for the device-hashed path: all messages must be 32
     bytes (the notary's tx ids). Returns ((A, R, S, M) (8, bucket) uint32
-    word arrays, n). Checks each item (pk -> msg -> sig) with the JAX
-    package's messages and order, so malformed input fails identically."""
+    word arrays, n). Packs in the native core (native/_cverify.c
+    ``pack_words``, GIL released) where it builds, else in numpy
+    (:func:`precompute_batch_device_numpy`); the two give byte-equal words
+    and the same ValueErrors in the same order."""
+    from .. import native
+
+    core = native.load_cverify()
+    if core is None:
+        return precompute_batch_device_numpy(pubkeys, msgs, sigs, bucket)
+    n = len(sigs)
+    b = bucket or pick_bucket(n)
+    raw = core.pack_words(pubkeys, msgs, sigs, b)
+    return tuple(np.frombuffer(w, "<u4").reshape(8, b) for w in raw), n
+
+
+def precompute_batch_device_numpy(pubkeys, msgs, sigs,
+                                  bucket: int | None = None):
+    """The numpy packer of the device-hashed path: the behavioural
+    authority the native packer is held to, and the fallback where it does
+    not build. Checks each item (pk -> msg -> sig) with the JAX package's
+    messages and order, so malformed input fails identically."""
     n = len(sigs)
     b = bucket or pick_bucket(n)
     raw = [bytes(m) for m in msgs]
@@ -381,3 +401,54 @@ def verify_batch(pubkeys, msgs, sigs, device="cuda") -> np.ndarray:
     out = verify_fn(*tensors)[:m].cpu().numpy()
     ok[good] = out
     return ok
+
+
+def verify_stream(batches, device="cuda", depth: int = 2):
+    """Pipelined streaming verify: yields one bool array per input batch,
+    in order.
+
+    ``batches`` is an iterable of (pubkeys, msgs, sigs) triples; each packs
+    to its exact size (malformed input raises, as the packers do). On the
+    card the host packs batch k + 1 while the device runs batch k: the
+    words go into pinned host memory, copy to the card with
+    ``non_blocking``, both kernels run on one CUDA stream of this call that
+    the host never waits on, and the answers copy back into pinned memory
+    behind an event. The host waits on that event only when it pops the
+    oldest batch, which it does once more than ``depth`` are in flight, so
+    at most ``depth + 1`` batches are resident. On the CPU (the plain
+    versions) every step is synchronous and the results are the same."""
+    from . import require_cuda
+
+    dev = require_cuda(device)
+    cuda = dev.type == "cuda"
+    stream = torch.cuda.Stream(dev) if cuda else None  # None: no stream
+    pending = collections.deque()  # (event, answers, n), oldest first
+
+    def pop():
+        event, answers, n = pending.popleft()
+        if event is not None:
+            event.synchronize()
+        return answers.numpy()[:n].copy()
+
+    for pubkeys, msgs, sigs in batches:
+        n = len(sigs)
+        verify_fn, arrays, _ = _precompute_auto(pubkeys, msgs, sigs, n)
+        if n == 0:  # checked by the packer; nothing to launch
+            pending.append((None, torch.zeros(0, dtype=torch.bool), 0))
+        else:
+            host = torch.empty((4, 8, n), dtype=torch.int32, pin_memory=cuda)
+            for k, w in enumerate(arrays):
+                host[k].numpy()[...] = np.asarray(w, np.uint32).view(np.int32)
+            event = None
+            with torch.cuda.stream(stream):
+                words = host.to(dev, non_blocking=True)
+                answers = torch.empty(n, dtype=torch.bool, pin_memory=cuda)
+                answers.copy_(verify_fn(*words), non_blocking=True)
+                if cuda:
+                    event = torch.cuda.Event()
+                    event.record(stream)
+            pending.append((event, answers, n))
+        if len(pending) > depth:
+            yield pop()
+    while pending:
+        yield pop()

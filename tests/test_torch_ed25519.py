@@ -225,27 +225,31 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
 
 
 def test_torch_verifier_cpu_matches_oracle_and_jax_verifier():
+    # The ecdsa-p256 job carries an ed25519 key and signature: the JAX
+    # package's host ECDSA path rejects it, and so must the port's.
     jobs = [provider.VerifyJob(*CASES[i]) for i in range(len(CASES))]
     jobs.append(provider.VerifyJob(CASES[0][0], CASES[0][1], CASES[0][2],
                                    scheme="ecdsa-p256"))
-    v = provider.TorchVerifier(device="cpu", shadow_rate=0.2)
+    v = provider.TorchVerifier(device="cpu", shadow_rate=0.2,
+                               device_min_sigs=0)
     got = v.verify_batch(jobs)
-    assert got.tolist() == WANT + [False]
-    assert v.device_batches == 1
-    assert v.kernel_backend == "torch-cpu"
-    assert provider.OracleVerifier().verify_batch(jobs).tolist() == got.tolist()
     from corda_tpu.crypto.provider import VerifyJob as JaxJob
 
     jax_got = JaxVerifier(device_min_sigs=0).verify_batch(
-        [JaxJob(*c) for c in CASES])
-    assert jax_got.tolist() == WANT
+        [JaxJob(*c) for c in CASES]
+        + [JaxJob(CASES[0][0], CASES[0][1], CASES[0][2], scheme="ecdsa-p256")])
+    assert got.tolist() == jax_got.tolist() == WANT + [False]
+    assert (v.device_batches, v.host_batches) == (1, 0)
+    assert v.kernel_backend == "torch-cpu"
+    assert provider.OracleVerifier().verify_batch(jobs).tolist() == got.tolist()
 
 
 def test_shadow_sampling_detects_divergence(monkeypatch):
     seed, pk = _keypair()
     msg = bytes(32)
     jobs = [provider.VerifyJob(pk, msg, ref.sign(seed, msg))]
-    v = provider.TorchVerifier(device="cpu", shadow_rate=1.0)
+    v = provider.TorchVerifier(device="cpu", shadow_rate=1.0,
+                               device_min_sigs=0)
     assert v.verify_batch(jobs).tolist() == [True]
     monkeypatch.setattr(ted, "verify_arrays_hashed",
                         lambda *w: torch.zeros(w[0].shape[1], dtype=torch.bool))
@@ -258,6 +262,7 @@ def test_make_verifier_names():
                       provider.OracleVerifier)
     v = provider.make_verifier("torch-shadow", device="cpu")
     assert isinstance(v, provider.TorchVerifier) and v.shadow_rate > 0
+    assert isinstance(provider.make_verifier("cpu"), provider.CpuVerifier)
     with pytest.raises(ValueError, match="unknown verifier"):
         provider.make_verifier("jax")
     assert provider.TorchVerifier(device="cpu").verify_batch([]).tolist() == []

@@ -33,7 +33,8 @@ def _signed(i: int, msg_len: int = 32):
 def server(tmp_path_factory):
     address = _address(tmp_path_factory.mktemp("sc"), "s.sock")
     srv = sidecar.SidecarServer(address, device="cpu", coalesce_us=0,
-                                max_sigs=64).start(warm=False)
+                                max_sigs=64, device_min_sigs=0).start(
+                                    warm=False)
     yield srv
     srv.stop()
 
