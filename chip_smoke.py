@@ -7,7 +7,7 @@ this checkout):
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. probe    -- a CUDA device must exist; print its name and power limit.
-  2. build    -- compile both kernels from csrc/ with nvcc (in parallel).
+  2. build    -- compile the three csrc/ sources with nvcc (in parallel).
   3. host     -- (a) build the host tier's native core (gcc, libcrypto);
                  CpuVerifier against the oracle on the golden corpus,
                  including the S + L lane the native core rejects.
@@ -43,7 +43,25 @@ Phases, in order; any failure exits non-zero and prints no result:
                  above the crossover, takes the host tier; the re-probe
                  reopens the
                  gate through the kernels; the next batch is a device batch.
- 10. the verify kernel's registers, static SASS counts, resident blocks
+ 10. sha256   -- (a) the SHA-256 kernel (sha256_many) and the Merkle pair
+                 kernel (sha256_pair) against their plain versions on the
+                 card and hashlib, tolerance 0: padding edges, a ragged
+                 N = 1,000, 1,024 pairs, an odd-width level; merkle_roots
+                 on 1-33 leaves against MerkleTree.build.
+ 11. resolve  -- (b) a wave of 8,192 SignedTransactions (73,728 leaves; 1%
+                 with a flipped signature byte) built in the port and
+                 serialized; prime_ids over fresh deserializations on the
+                 host, then on the card (launch counts from 0), must give
+                 the build-time ids; merkle_roots on the card must equal
+                 them; one TorchVerifier.verify_batch over every signature
+                 must reject exactly the tampered transactions; a swapped
+                 id must raise "does not match". Tx/s and leaves/s on the
+                 host and on the card, split into deserialize, component
+                 serialize, hash, tree plus compare and verify; both
+                 kernels timed at the wave's shapes.
+ 12. hashing crossover -- (c) hash_many_auto on the host against the card
+                 over the wave's leaf messages, 256 ... 131,072.
+ 13. the verify kernel's registers, static SASS counts, resident blocks
      per SM and waves at N_MAIN; the kernels line, then the device line
      (last).
 
@@ -54,6 +72,8 @@ decides every expected answer.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -110,6 +130,21 @@ VERIFY_BYTES = 4 * 32 + 4
 # The mod-L reduction is left out, so the bound stays a lower bound.
 CHALLENGE_INT_OPS = (79 * 28 + 4) + (64 * 20 - 60) + 8 * 2 + (24 + 16)
 CHALLENGE_BYTES = 3 * 32 + 32
+VERIFY_KERNELS = ("ed25519_verify", "sha512_challenge")
+# SHA-256 kernels (csrc/sha256.cu): the least 32-bit instructions per
+# compression as Hopper issues them:
+#   * a round is 14: each Sigma three SHF rotates and one LOP3 (8), Ch and
+#     Maj one LOP3 each (2), t1 = h + Sigma1 + Ch + (K + W) an IADD3 pair
+#     (2), a = t1 + Sigma0 + Maj and e = d + t1 one IADD3 each (2);
+#   * a schedule word is 10: sigma0 and sigma1 two SHF and one SHR each
+#     plus one LOP3 (8), the 4-operand sum an IADD3 pair (2);
+#   * the 8 adds into the state.
+# A data block: 64 * 14 + 48 * 10 + 8 = 1,384. The constant pad block of a
+# Merkle node has no schedule work (its K + W are constants): 64 * 14 + 8.
+# Padding, byte loads and the word assembly are left out, so the bound
+# stays a lower bound.
+SHA256_BLOCK_INT_OPS = 64 * 14 + 48 * 10 + 8
+SHA256_PAD_BLOCK_INT_OPS = 64 * 14 + 8
 
 
 def log(*args) -> None:
@@ -460,7 +495,7 @@ def phase_main(ref, provider, native, ted, tsha, kernels, dev, rng, card):
     kernels.reset_launches()
     got = verifier.verify_batch(jobs)
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches = {k: kernels.LAUNCHES[k] for k in VERIFY_KERNELS}
     check(got.shape == (N_MAIN,) and got.dtype == bool, "bad result shape")
     check(np.array_equal(got, want),
           f"main path != oracle on {int((got != want).sum())} lanes")
@@ -611,7 +646,7 @@ def phase_crossover(provider, native, fast_ed25519, kernels, tuples, card):
         kernels.reset_launches()
         check(card_v.verify_batch(jobs).all() and cpu.verify_batch(jobs).all(),
               f"crossover batch of {n} != oracle (all valid)")
-        check(min(kernels.LAUNCHES.values()) > 0,
+        check(min(kernels.LAUNCHES[k] for k in VERIFY_KERNELS) > 0,
               f"the card's batch of {n} did not launch both kernels")
         cpu_ms = host_ms(lambda: cpu.verify_batch(jobs), reps=5)
         card_ms = host_ms(lambda: card_v.verify_batch(jobs), reps=5)
@@ -676,7 +711,7 @@ def phase_stream(ted, kernels, tuples, expect, main_res, card):
         outs = fn()
         walls[name].append((time.perf_counter() - t0) * 1e3)
         if turn == 0:
-            launches = dict(kernels.LAUNCHES)
+            launches = {k: kernels.LAUNCHES[k] for k in VERIFY_KERNELS}
         check(len(outs) == STREAM_BATCHES and all(
             np.array_equal(o, w) for o, w in zip(outs, wants)),
             f"{name} answers != oracle")
@@ -773,7 +808,7 @@ def phase_sidecar(provider, sidecar, kernels, jobs, want):
             t.start()
         for t in threads:
             t.join(timeout=300)
-        launches = dict(kernels.LAUNCHES)
+        launches = {k: kernels.LAUNCHES[k] for k in VERIFY_KERNELS}
         # (e) one request alone, under the crossover: the host tier.
         small_tier, small_got = request_tier(sidecar, server.address,
                                              jobs[:n_small], 77)
@@ -837,7 +872,7 @@ def phase_degrade(provider, kernels, jobs, want):
     while not v.device_gate.is_set() and time.monotonic() < deadline:
         time.sleep(0.01)
     torch.cuda.synchronize()
-    probe_launches = dict(kernels.LAUNCHES)
+    probe_launches = {k: kernels.LAUNCHES[k] for k in VERIFY_KERNELS}
     check(v.device_gate.is_set() and v.reprobes_ok == 1
           and v.reprobes_failed == 0,
           f"the re-probe did not reopen the gate (ok {v.reprobes_ok}, "
@@ -852,6 +887,381 @@ def phase_degrade(provider, kernels, jobs, want):
         f"re-probe reopened the gate through the kernels ({probe_launches}); "
         f"the next batch ran on the card (= oracle)")
     return {"n": n, "probe_launches": probe_launches}
+
+
+# --- the resolve path: SHA-256 kernels, the transaction wave, crossover -----
+
+SHA_EDGES = (0, 1, 55, 56, 63, 64, 65, 119, 120, 128, 200, 1000)
+N_RAGGED = 1000
+# bench.py's bench_resolve_ids wave (2,048 transactions) scaled to 8,192:
+# DummyContract.generate_initial plus 7 more DummySingleOwnerState outputs
+# and one signature a transaction, so 9 leaves a transaction.
+N_WAVE = 8192
+OUTPUTS_PER_TX = 8
+HASH_CROSSOVER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768,
+                        65536, 131072)
+NEVER = 1 << 62  # a device_min no batch reaches: hash_many_auto's host route
+
+
+def flat_tensors(tsha256, msgs, dev):
+    data, offsets = tsha256.pack_flat(msgs)
+    return (torch.from_numpy(data.copy()).to(dev),
+            torch.from_numpy(offsets).to(dev))
+
+
+def max_err_of(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def leaf_level(leaf_groups, dev) -> torch.Tensor:
+    """Equal-length groups of 32-byte digests -> (8, m, leaves) int32."""
+    m, n = len(leaf_groups), len(leaf_groups[0])
+    raw = b"".join(b"".join(g) for g in leaf_groups)
+    words = np.frombuffer(raw, ">u4").astype(np.uint32).reshape(
+        m, n, 8).transpose(2, 0, 1)
+    return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(dev)
+
+
+def reduce_levels(level_fn, level):
+    while level.shape[2] > 1:
+        level = level_fn(level)
+    return level
+
+
+def phase_sha256_kernels(tsha256, kernels, dev, rng):
+    """Phase 10 (a): both SHA-256 kernels against their plain versions on
+    the card and against hashlib, tolerance 0 (digests are bits):
+    sha256_many on the padding edges and a seeded ragged N = 1,000;
+    sha256_pair on seeded (8, 1,024) pairs and an odd-width level;
+    merkle_roots on 1-33 leaves against the port's MerkleTree.build."""
+    from corda_tpu_torch.crypto.hashes import SecureHash
+    from corda_tpu_torch.crypto.merkle import MerkleTree
+
+    max_err = {"sha256_many": 0, "sha256_pair": 0}
+    edges = [rng.bytes(n) for n in SHA_EDGES for _ in range(3)]
+    ragged = [rng.bytes(int(k)) for k in rng.integers(0, 1200, N_RAGGED)]
+    for name, msgs in (("padding edges", edges), ("ragged batch", ragged)):
+        data, offsets = flat_tensors(tsha256, msgs, dev)
+        k = kernels.sha256_many_cuda(data, offsets)
+        p = tsha256.sha256_flat_reference(data, offsets)
+        torch.cuda.synchronize()
+        max_err["sha256_many"] = max(max_err["sha256_many"], max_err_of(k, p))
+        check(torch.equal(k, p), f"sha256_many kernel != plain on the {name}")
+        check(tsha256.digests_of(k) == [hashlib.sha256(m).digest()
+                                        for m in msgs],
+              f"sha256_many kernel != hashlib on the {name}")
+    pairs = torch.from_numpy(rng.integers(
+        0, 2**32, (8, 1024, 2), dtype=np.uint64).astype(np.uint32).view(
+        np.int32)).to(dev)
+    k = kernels.sha256_pair_cuda(pairs)[:, :, 0]
+    p = tsha256.sha256_pair_words_reference(pairs[:, :, 0].contiguous(),
+                                            pairs[:, :, 1].contiguous())
+    odd = torch.from_numpy(rng.integers(
+        0, 2**32, (8, 64, 9), dtype=np.uint64).astype(np.uint32).view(
+        np.int32)).to(dev)
+    k_odd = kernels.sha256_pair_cuda(odd)
+    p_odd = tsha256.merkle_level_reference(odd)
+    torch.cuda.synchronize()
+    max_err["sha256_pair"] = max(max_err_of(k, p), max_err_of(k_odd, p_odd))
+    check(torch.equal(k, p) and torch.equal(k_odd, p_odd),
+          "sha256_pair kernel != plain")
+    host = pairs.cpu().numpy().view(np.uint32)
+    check(tsha256.digests_of(k) == [hashlib.sha256(
+        host[:, i, 0].astype(">u4").tobytes()
+        + host[:, i, 1].astype(">u4").tobytes()).digest()
+        for i in range(1024)], "sha256_pair kernel != hashlib")
+    groups = [[rng.bytes(32) for _ in range(n)] for n in range(1, 34)]
+    check(tsha256.merkle_roots(groups, device="cuda") == [
+        MerkleTree.build([SecureHash(h) for h in g]).hash.bytes
+        for g in groups], "merkle_roots on the card != MerkleTree.build")
+    log(f"sha256 kernels vs plain on the card (tolerance 0): sha256_many on "
+        f"{len(edges)} padding-edge and {N_RAGGED} ragged messages, "
+        f"sha256_pair on 1,024 pairs and a 9-wide level, identical and = "
+        f"hashlib; merkle_roots on 1-33 leaves = MerkleTree.build")
+    return max_err
+
+
+def build_wave(rng):
+    """The resolve wave, built in the port from ``rng``: N_WAVE serialized
+    SignedTransactions, the build-time ids, and the indices whose one
+    signature has a flipped byte (TAMPER_FRACTION of them; ids intact)."""
+    from corda_tpu_torch.crypto.keys import DigitalSignature, KeyPair
+    from corda_tpu_torch.crypto.party import Party
+    from corda_tpu_torch.serialization.codec import serialize
+    from corda_tpu_torch.testing.dummies import (DummyContract,
+                                                 DummySingleOwnerState)
+
+    key = KeyPair.generate(rng.bytes(32))
+    notary = Party.of("Notary", KeyPair.generate(rng.bytes(32)).public)
+    party = Party.of("Party", key.public)
+    tampered = set(rng.choice(N_WAVE, int(N_WAVE * TAMPER_FRACTION),
+                              replace=False).tolist())
+    blobs, ids = [], []
+    for i in range(N_WAVE):
+        b = DummyContract.generate_initial(
+            party.ref(i.to_bytes(4, "big")), i, notary)
+        for j in range(OUTPUTS_PER_TX - 1):
+            b.add_output_state(DummySingleOwnerState(
+                i * 1000 + j, party.owning_key))
+        stx = b.sign_with(key).to_signed_transaction()
+        if i in tampered:
+            sig = stx.sigs[0].bytes
+            stx = dataclasses.replace(stx, sigs=(DigitalSignature.WithKey(
+                bytes=sig[:9] + bytes([sig[9] ^ 0x04]) + sig[10:],
+                by=stx.sigs[0].by),))
+        blobs.append(serialize(stx).bytes)
+        ids.append(stx.id.bytes)
+    return blobs, ids, tampered
+
+
+def wave_jobs(provider, stxs):
+    """Every signature of the wave, formed as the node's verify batch forms
+    them (corda_tpu/node/statemachine.py:1355-1378), and each
+    transaction's [lo, hi) span in the list."""
+    jobs, spans = [], []
+    for s in stxs:
+        spans.append((len(jobs), len(jobs) + len(s.sigs)))
+        jobs.extend(provider.VerifyJob(sig.by.encoded, s.id.bytes, sig.bytes)
+                    for sig in s.sigs)
+    return jobs, spans
+
+
+def tx_accepts(ok, spans) -> list[bool]:
+    return [bool(ok[lo:hi].all()) for lo, hi in spans]
+
+
+def resolve_split(provider, tsha256, blobs, ids, want, device_min,
+                  verifier) -> dict:
+    """One resolve pass over fresh deserializations, prime_ids' steps timed
+    one by one on the host clock: deserialize (the SignedTransaction and its
+    WireTransaction), component serialize, hash (hash_many_auto), tree plus
+    compare, then verify (every signature in one verify_batch)."""
+    from corda_tpu_torch.serialization.codec import deserialize
+    from corda_tpu_torch.transactions import signed
+
+    t = [time.perf_counter()]
+    stxs = [deserialize(b) for b in blobs]
+    wtxs = [s.tx_bits.deserialize() for s in stxs]
+    t.append(time.perf_counter())
+    flat, spans = signed.component_blobs(wtxs)
+    t.append(time.perf_counter())
+    digests, backend = tsha256.hash_many_auto(flat, device_min=device_min,
+                                              device="cuda")
+    t.append(time.perf_counter())
+    signed.seed_and_check_ids(stxs, wtxs, spans, digests)
+    t.append(time.perf_counter())
+    jobs, job_spans = wave_jobs(provider, stxs)
+    ok = verifier.verify_batch(jobs)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    check([s.tx.id.bytes for s in stxs] == ids, "split pass: ids differ")
+    check(tx_accepts(ok, job_spans) == want, "split pass: accepts differ")
+    ms = {name: (t[i + 1] - t[i]) * 1e3 for i, name in enumerate(
+        ("deserialize", "component_serialize", "hash", "tree_and_compare",
+         "verify"))}
+    total = sum(ms.values())
+    return {"backend": backend, "ms": ms, "total_ms": total,
+            "tx_s": len(blobs) / (total / 1e3),
+            "leaves_s": len(flat) / (total / 1e3)}
+
+
+def phase_resolve(provider, tsha256, kernels, dev, rng, card):
+    """Phase 11 (b): the resolve wave at full size through the entry points
+    (prime_ids, merkle_roots, TorchVerifier.verify_batch), on the host and
+    on the card; the tampered id; the time split; kernel times at the
+    wave's shapes."""
+    from corda_tpu_torch.crypto.hashes import SecureHash
+    from corda_tpu_torch.crypto.merkle import MerkleTree
+    from corda_tpu_torch.serialization.codec import deserialize, serialize
+    from corda_tpu_torch.transactions.signed import SignedTransaction
+
+    t0 = time.perf_counter()
+    blobs, ids, tampered = build_wave(rng)
+    build_s = time.perf_counter() - t0
+    want = [i not in tampered for i in range(N_WAVE)]
+    card_v = provider.TorchVerifier(device="cuda")
+    card_v.warm()
+
+    # Host: fresh copies, hash_many_auto's host route.
+    host_batch = [deserialize(b) for b in blobs]
+    t0 = time.perf_counter()
+    backend = SignedTransaction.prime_ids(host_batch, device_min=NEVER,
+                                          device="cuda")
+    host_prime_ms = (time.perf_counter() - t0) * 1e3
+    check(backend == "host" and [s.tx.id.bytes for s in host_batch] == ids,
+          "host prime_ids != build-time ids")
+
+    # The card: the main path of this phase, counted from 0.
+    batch = [deserialize(b) for b in blobs]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    backend = SignedTransaction.prime_ids(batch, device_min=0, device="cuda")
+    t1 = time.perf_counter()
+    leaves = [[h.bytes for h in s.tx.all_leaves_hashes] for s in batch]
+    roots = tsha256.merkle_roots(leaves, device="cuda")
+    t2 = time.perf_counter()
+    jobs, job_spans = wave_jobs(provider, batch)
+    ok = card_v.verify_batch(jobs)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    n_leaves = sum(len(g) for g in leaves)
+    check(backend == "device", f"card prime_ids took the {backend} route")
+    check([s.tx.id.bytes for s in batch] == ids,
+          "card prime_ids != build-time ids")
+    check(roots == ids, "merkle_roots on the card != build-time ids")
+    accepts = tx_accepts(ok, job_spans)
+    check(accepts == want,
+          f"verify_batch rejected {[i for i, a in enumerate(accepts) if not a]}"
+          f" but the tampered transactions are {sorted(tampered)}")
+    check(launches["sha256_many"] == 1 and launches["sha256_pair"] > 0
+          and min(launches[k] for k in VERIFY_KERNELS) > 0
+          and card_v.device_batches >= 1,
+          f"the resolve wave did not launch every kernel: {launches}")
+    log(f"resolve wave: {N_WAVE} transactions ({n_leaves} leaves, built in "
+        f"{build_s:.1f} s): host and card prime_ids and merkle_roots on the "
+        f"card = build-time ids; verify_batch rejects exactly the "
+        f"{len(tampered)} tampered; launches {launches}")
+
+    # A tampered id: one blob whose id is another transaction's.
+    small = [deserialize(b) for b in blobs[:3]]
+    bad = [serialize(s).bytes for s in
+           (small[2], dataclasses.replace(small[0], id=small[1].id))]
+    try:
+        SignedTransaction.prime_ids([deserialize(b) for b in bad],
+                                    device_min=0, device="cuda")
+        fail("a swapped id was accepted by prime_ids on the card")
+    except ValueError as e:
+        check("does not match" in str(e), f"wrong error for a swapped id: {e}")
+    log("tampered id: prime_ids on the card raised the 'does not match' "
+        "ValueError")
+
+    # The time split over fresh copies, in turns (card, host, host, card),
+    # with the earlier waves freed so each pass finds the same heap.
+    from corda_tpu_torch.transactions import signed
+
+    flat, _ = signed.component_blobs([s.tx for s in batch])
+    packed = card_v._pack(jobs)
+    del batch, host_batch, small
+    split = {"card": [], "host": []}
+    for where in ("card", "host", "host", "card"):
+        gc.collect()
+        split[where].append(resolve_split(
+            provider, tsha256, blobs, ids, want,
+            0 if where == "card" else NEVER,
+            card_v if where == "card" else provider.CpuVerifier()))
+    check(all(sp["backend"] == "device" for sp in split["card"])
+          and all(sp["backend"] == "host" for sp in split["host"]),
+          "split routes differ")
+    for where in ("host", "card"):
+        for sp in split[where]:
+            log(f"{card} | resolve {where}: {sp['tx_s']:.0f} tx/s, "
+                f"{sp['leaves_s']:.0f} leaves/s; ms: " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in sp["ms"].items())
+                + f" (total {sp['total_ms']:.1f})")
+
+    # Kernel times at the wave's shapes.
+    data, offsets = flat_tensors(tsha256, flat, dev)
+    lengths = np.diff(offsets.cpu().numpy())
+    blocks = int(((lengths + 8) // 64 + 1).sum())
+    k_many = kernels.sha256_many_cuda(data, offsets)
+    p_many = tsha256.sha256_flat_reference(data, offsets)
+    torch.cuda.synchronize()
+    check(torch.equal(k_many, p_many), "sha256_many kernel != plain on the wave")
+    many = {"ms": kernel_ms(lambda: kernels.sha256_many_cuda(data, offsets)),
+            "wrapper_host_us": wrapper_host_us(
+                lambda: kernels.sha256_many_cuda(data, offsets), calls=100),
+            "plain_ms": idle_stream_ms(
+                lambda: tsha256.sha256_flat_reference(data, offsets), reps=2),
+            "hashlib_ms": host_ms(lambda: [hashlib.sha256(m).digest()
+                                           for m in flat], reps=3),
+            "max_err": max_err_of(k_many, p_many), "blocks": blocks,
+            "messages": len(flat),
+            "bytes": int(data.numel()) + 8 * (len(flat) + 1) + 32 * len(flat),
+            "launches": launches["sha256_many"]}
+    level0 = leaf_level(leaves, dev)
+    k_root = reduce_levels(kernels.sha256_pair_cuda, level0)
+    p_root = reduce_levels(tsha256.merkle_level_reference, level0)
+    torch.cuda.synchronize()
+    check(torch.equal(k_root, p_root), "sha256_pair kernel != plain on the wave")
+    nodes = pair_bytes = 0
+    width = level0.shape[2]
+    while width > 1:
+        wout = (width + 1) // 2
+        nodes += N_WAVE * wout
+        pair_bytes += 32 * N_WAVE * (width + wout)
+        width = wout
+    pair = {"ms": kernel_ms(lambda: reduce_levels(kernels.sha256_pair_cuda,
+                                                  level0)),
+            "wrapper_host_us": wrapper_host_us(
+                lambda: kernels.sha256_pair_cuda(level0), calls=100),
+            "plain_ms": idle_stream_ms(lambda: reduce_levels(
+                tsha256.merkle_level_reference, level0), reps=2),
+            "hashlib_ms": host_ms(lambda: [MerkleTree.build(
+                [SecureHash(h) for h in g]).hash for g in leaves], reps=3),
+            "max_err": max_err_of(k_root, p_root), "nodes": nodes,
+            "bytes": pair_bytes, "launches": launches["sha256_pair"]}
+    # Both verify kernels on the wave's 8,192 signatures, as verify_batch
+    # packed them.
+    verify_ms = kernel_ms(lambda: packed.verify_fn(*packed.tensors))
+    e2e_card_ms = (t3 - t0) * 1e3
+    busy = many["ms"] + pair["ms"] + verify_ms
+    log(f"{card} | resolve kernels at the wave's shapes: sha256_many "
+        f"{many['ms']:.4f} ms for {len(flat)} messages / {blocks} blocks "
+        f"(wrapper {many['wrapper_host_us']:.1f} us/call, plain "
+        f"{many['plain_ms']:.1f} ms, hashlib on the host "
+        f"{many['hashlib_ms']:.1f} ms); sha256_pair {pair['ms']:.4f} ms for "
+        f"the wave's {launches['sha256_pair']} level launches, {nodes} nodes "
+        f"(wrapper {pair['wrapper_host_us']:.1f} us/call, plain "
+        f"{pair['plain_ms']:.1f} ms, host trees {pair['hashlib_ms']:.1f} ms);"
+        f" challenge + verify kernels on the wave's signatures "
+        f"{verify_ms:.4f} ms; card path prime_ids {(t1 - t0) * 1e3:.1f} ms +"
+        f" merkle_roots {(t2 - t1) * 1e3:.1f} ms + verify "
+        f"{(t3 - t2) * 1e3:.1f} ms, host prime_ids {host_prime_ms:.1f} ms; "
+        f"the kernels are busy {busy / e2e_card_ms:.3e} of the card path's "
+        f"wall (device idle {1 - busy / e2e_card_ms:.6f})")
+    return {"build_s": build_s, "n_tx": N_WAVE, "leaves": n_leaves,
+            "tampered": len(tampered), "launches": launches,
+            "host_prime_ids_ms": host_prime_ms,
+            "card_prime_ids_ms": (t1 - t0) * 1e3,
+            "card_merkle_roots_ms": (t2 - t1) * 1e3,
+            "card_verify_ms": (t3 - t2) * 1e3, "split": split,
+            "verify_kernels_ms": verify_ms,
+            "device_idle_share": 1 - busy / e2e_card_ms,
+            "sha256_many": many, "sha256_pair": pair}, flat
+
+
+def phase_hash_crossover(tsha256, flat, card):
+    """Phase 12 (c): hash_many_auto on the host against the card over the
+    wave's leaf messages (tiled), 256 ... 131,072, host-clock medians of
+    5; the smallest size from which the card wins at every larger size,
+    beside DEVICE_MIN_HASHES_DEFAULT."""
+    top = HASH_CROSSOVER_SIZES[-1]
+    msgs = (flat * (-(-top // len(flat))))[:top]
+    rows = []
+    for n in HASH_CROSSOVER_SIZES:
+        sub = msgs[:n]
+        host_d, hb = tsha256.hash_many_auto(sub, device_min=n + 1,
+                                            device="cuda")
+        card_d, cb = tsha256.hash_many_auto(sub, device_min=n, device="cuda")
+        check((hb, cb) == ("host", "device") and host_d == card_d,
+              f"hash_many_auto routes disagree at {n}")
+        rows.append({"n": n, "host_ms": host_ms(
+            lambda: tsha256.hash_many_auto(sub, device_min=n + 1,
+                                           device="cuda")),
+            "card_ms": host_ms(lambda: tsha256.hash_many_auto(
+                sub, device_min=n, device="cuda"))})
+    crossover = None
+    for r in reversed(rows):
+        if r["card_ms"] >= r["host_ms"]:
+            break
+        crossover = r["n"]
+    log(f"{card} | hashing crossover (host clock, medians of 5): " + "; ".join(
+        f"{r['n']}: host {r['host_ms']:.3f} ms / card {r['card_ms']:.3f} ms"
+        for r in rows) + f" -> the card wins from {crossover} on "
+        f"(DEVICE_MIN_HASHES_DEFAULT {tsha256.DEVICE_MIN_HASHES_DEFAULT})")
+    return {"rows": rows, "crossover": crossover,
+            "default": tsha256.DEVICE_MIN_HASHES_DEFAULT}
 
 
 def sass_instructions(nvcc: str, lib: str, kernel: str) -> list[tuple]:
@@ -959,6 +1369,7 @@ def main() -> int:
     from corda_tpu_torch.crypto import ref_ed25519 as ref
     from corda_tpu_torch.ops import _build, kernels
     from corda_tpu_torch.ops import ed25519 as ted
+    from corda_tpu_torch.ops import sha256 as tsha256
     from corda_tpu_torch.ops import sha512 as tsha
 
     # 1. probe
@@ -1023,7 +1434,15 @@ def main() -> int:
                                          want)
     degrade_res = phase_degrade(provider, kernels, jobs, want)
 
-    # 10. kernels line
+    # 10. SHA-256 kernels vs plain, 11. the resolve wave, 12. its crossover
+    max_err.update(phase_sha256_kernels(tsha256, kernels, dev, rng))
+    resolve_res, leaf_msgs = phase_resolve(provider, tsha256, kernels, dev,
+                                           rng, card)
+    for k in ("sha256_many", "sha256_pair"):
+        max_err[k] = max(max_err[k], resolve_res[k]["max_err"])
+    hash_cross = phase_hash_crossover(tsha256, leaf_msgs, card)
+
+    # 13. kernels line
     bound1, by1 = bound_ms(N_MAIN * VERIFY_BYTES,
                            main_res["verify_least_int_ops"])
     bound2, by2 = bound_ms(N_MAIN * CHALLENGE_BYTES,
@@ -1033,8 +1452,14 @@ def main() -> int:
     log(f"verify bound: {bound1:.4f} ms for the least work of these scalars "
         f"({main_res['verify_least_per_sig']} per signature); the kernel's "
         f"fixed windows {bound_ms(0, structure_ops)[0]:.4f} ms")
+    many, pair = resolve_res["sha256_many"], resolve_res["sha256_pair"]
+    bound3, by3 = bound_ms(many["bytes"], many["blocks"] * SHA256_BLOCK_INT_OPS)
+    bound4, by4 = bound_ms(pair["bytes"], pair["nodes"] * (
+        SHA256_BLOCK_INT_OPS + SHA256_PAD_BLOCK_INT_OPS))
     for name, k_ms, b_ms in (("verify", main_res["k1_ms"], bound1),
-                             ("challenge", main_res["k2_ms"], bound2)):
+                             ("challenge", main_res["k2_ms"], bound2),
+                             ("sha256_many", many["ms"], bound3),
+                             ("sha256_pair", pair["ms"], bound4)):
         log(f"{card} | {name} kernel {k_ms:.4f} ms = {b_ms / k_ms:.1%} of its "
             f"bound {b_ms:.4f} ms: "
             + ("at least half of it" if b_ms / k_ms >= 0.5
@@ -1054,12 +1479,25 @@ def main() -> int:
          "max_abs_err": max_err["sha512_challenge"],
          "ms": main_res["k2_ms"], "plain_ms": main_res["p2_ms"],
          "bound_ms": bound2, "bound_by": by2, "library_ms": None},
+        {"name": "sha256_many", "route": "cuda",
+         "source": "corda_tpu_torch/ops/csrc/sha256.cu",
+         "replaces": "corda_tpu/ops/sha256_jax.py:66",
+         "launches": many["launches"], "max_abs_err": max_err["sha256_many"],
+         "ms": many["ms"], "plain_ms": many["plain_ms"],
+         "bound_ms": bound3, "bound_by": by3, "library_ms": None},
+        {"name": "sha256_pair", "route": "cuda",
+         "source": "corda_tpu_torch/ops/csrc/sha256.cu",
+         "replaces": "corda_tpu/ops/sha256_jax.py:170",
+         "launches": pair["launches"], "max_abs_err": max_err["sha256_pair"],
+         "ms": pair["ms"], "plain_ms": pair["plain_ms"],
+         "bound_ms": bound4, "bound_by": by4, "library_ms": None},
     ]}
     record = {"card": card, "build_s": build_s, "n_main": N_MAIN,
               "host_tier": host_res, "main": main_res,
               "crossover": cross_res, "stream": stream_res,
               "sidecar_stats": stats, "sidecar_launches": side_launches,
-              "degrade": degrade_res,
+              "degrade": degrade_res, "resolve": resolve_res,
+              "hash_crossover": hash_cross,
               "ptxas": {s: ptxas_summary(_build, s) for s in _build.SOURCES},
               "sass_sha512_challenge": sass2,
               "challenge_least_int_ops": CHALLENGE_INT_OPS,

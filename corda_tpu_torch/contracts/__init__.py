@@ -1,0 +1,41 @@
+"""L1 ledger data model: states, contracts, commands, transactions-for-contract.
+
+The port's copies of ``corda_tpu/contracts/structures.py`` and
+``verification.py``; the JAX package's ``dsl`` and the sandbox, clause and
+universal-contract modules are not ported yet (ROADMAP.md).
+"""
+
+from .structures import (  # noqa: F401
+    Attachment,
+    AuthenticatedObject,
+    Command,
+    CommandData,
+    ContractState,
+    Contract,
+    DealState,
+    FungibleAsset,
+    IssueCommand,
+    Issued,
+    LinearState,
+    MoveCommand,
+    OwnableState,
+    SchedulableState,
+    StateAndRef,
+    StateRef,
+    Timestamp,
+    TransactionState,
+    TypeOnlyCommandData,
+    UniqueIdentifier,
+)
+from .verification import (  # noqa: F401
+    InOutGroup,
+    TransactionForContract,
+    TransactionVerificationException,
+    ContractRejection,
+    MoreThanOneNotary,
+    NotaryChangeInWrongTransactionType,
+    SignersMissing,
+    InvalidNotaryChange,
+    TransactionMissingEncumbranceException,
+    TransactionResolutionException,
+)

@@ -363,6 +363,26 @@ def degrade_device(verifier, cooldown_s: float) -> bool:
     return True
 
 
+_default: BatchVerifier | None = None
+
+
+def get_verifier() -> BatchVerifier:
+    """The process-wide verifier (``SignedTransaction.
+    check_signatures_are_valid`` reads it). Defaults to
+    ``make_verifier("torch")`` on the card, built on first use; there is
+    no environment variable. Install another with :func:`set_verifier`."""
+    global _default
+    if _default is None:
+        _default = make_verifier("torch")
+    return _default
+
+
+def set_verifier(verifier: BatchVerifier | None) -> None:
+    """Install a provider (None resets to the default on next use)."""
+    global _default
+    _default = verifier
+
+
 def make_verifier(kind: str, device: str = "cuda") -> BatchVerifier:
     """Provider factory: torch | torch-shadow | cpu | oracle. Unknown names
     raise: a typo must not silently swap the notary's verifier."""

@@ -1,8 +1,9 @@
 """PyTorch/CUDA data plane of corda_tpu_torch.
 
 Counterpart of ``corda_tpu/ops``: batched GF(2^255-19) arithmetic
-(fe25519), Ed25519 signature verification (ed25519) and the SHA-512
-challenge (sha512). Each function that reaches a hand-written CUDA kernel
+(fe25519), Ed25519 signature verification (ed25519), the SHA-512
+challenge (sha512) and the resolve path's batched SHA-256 and Merkle
+roots (sha256). Each function that reaches a hand-written CUDA kernel
 (csrc/*.cu, built by _build.py, bound by kernels.py) keeps a plain PyTorch
 version beside it: a CPU tensor takes the plain version, a CUDA tensor
 takes the kernel, and nothing falls back from one to the other.

@@ -20,7 +20,7 @@ import threading
 from . import BUILD_ROOT
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("ed25519_verify.cu", "sha512_challenge.cu")
+SOURCES = ("ed25519_verify.cu", "sha512_challenge.cu", "sha256.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -5,7 +5,8 @@ contiguity, allocates its output with ``torch.empty``, launches on the
 current CUDA stream without synchronising, raises if the launch is
 refused (the C entry point returns ``cudaGetLastError()``), and adds one
 to its launch count. The dispatching functions (ed25519.verify_arrays,
-sha512.challenge_words) send CPU tensors to the plain versions instead.
+sha512.challenge_words, sha256.sha256_flat, sha256.merkle_level) send CPU
+tensors to the plain versions instead.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 from . import _build
 
 # Launches per kernel, counted where the launch happens and nowhere else.
-LAUNCHES = {"ed25519_verify": 0, "sha512_challenge": 0}
+LAUNCHES = {"ed25519_verify": 0, "sha512_challenge": 0, "sha256_many": 0,
+            "sha256_pair": 0}
 
 _VP = ctypes.c_void_p
 _BTAB: dict[torch.device, torch.Tensor] = {}
@@ -30,14 +32,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _fn(src: str, name: str, nptr: int):
-    """The C launcher ``name`` from ``csrc/<src>``: nptr pointers, an int
-    N and the stream, returning an int error code."""
+def _fn(src: str, name: str, nptr: int, nint: int = 1):
+    """The C launcher ``name`` from ``csrc/<src>``: nptr pointers, nint ints
+    and the stream, returning an int error code."""
     key = f"{src}:{name}"
     fn = _FNS.get(key)
     if fn is None:
         fn = getattr(_build.load(src), name)
-        fn.argtypes = [_VP] * nptr + [ctypes.c_int, _VP]
+        fn.argtypes = [_VP] * nptr + [ctypes.c_int] * nint + [_VP]
         fn.restype = ctypes.c_int
         _FNS[key] = fn
     return fn
@@ -147,4 +149,60 @@ def sha512_challenge_cuda(r, a, m) -> torch.Tensor:
                  _stream(r.device))
     _raise_if("sha512_challenge", err)
     LAUNCHES["sha512_challenge"] += 1
+    return out
+
+
+def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, dim: int
+                ) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
+    if t.dtype != dtype or t.dim() != dim or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {dim}-d {dtype} "
+                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+
+
+def sha256_many_cuda(data: torch.Tensor, offsets: torch.Tensor
+                     ) -> torch.Tensor:
+    """Kernel 3: message i = data[offsets[i]:offsets[i + 1]] (uint8 bytes
+    and N + 1 int64 offsets on the card) -> (8, N) int32 SHA-256 state words
+    (big-endian digest words); the kernel pads each message itself. The
+    offsets must rise from 0 to at most len(data), as pack_flat makes them
+    (not checked here: that would synchronise with the card)."""
+    _check_cuda("sha256_many", data, torch.uint8, 1)
+    _check_cuda("sha256_many", offsets, torch.int64, 1)
+    if data.device != offsets.device:
+        raise ValueError("sha256_many: tensors on different devices")
+    n = offsets.shape[0] - 1
+    if n < 0 or n >= 2**31 // 8:
+        raise ValueError(f"sha256_many: {n} messages: expected 0 <= N < 2^28")
+    out = torch.empty((8, n), dtype=torch.int32, device=data.device)
+    fn = _fn("sha256.cu", "sha256_many_launch", 3)
+    with torch.cuda.device(data.device):
+        err = fn(data.data_ptr(), offsets.data_ptr(), out.data_ptr(), n,
+                 _stream(data.device))
+    _raise_if("sha256_many", err)
+    LAUNCHES["sha256_many"] += 1
+    return out
+
+
+def sha256_pair_cuda(level: torch.Tensor) -> torch.Tensor:
+    """Kernel 4: one Merkle level, (8, m, width) int32 digest words of m
+    trees on the card -> (8, m, ceil(width / 2)): node j is sha256(node 2j
+    || node 2j + 1), the last node paired with itself when width is odd."""
+    _check_cuda("sha256_pair", level, torch.int32, 3)
+    if level.shape[0] != 8 or level.shape[2] < 1:
+        raise ValueError(f"sha256_pair: expected (8, m, width >= 1) words, "
+                         f"got {tuple(level.shape)}")
+    m, width = level.shape[1], level.shape[2]
+    wout = (width + 1) // 2
+    if m * width >= 2**31 // 8:
+        raise ValueError(f"sha256_pair: level {m} x {width} too large for "
+                         "one launch")
+    out = torch.empty((8, m, wout), dtype=torch.int32, device=level.device)
+    fn = _fn("sha256.cu", "sha256_pair_launch", 2, nint=2)
+    with torch.cuda.device(level.device):
+        err = fn(level.data_ptr(), out.data_ptr(), m, width,
+                 _stream(level.device))
+    _raise_if("sha256_pair", err)
+    LAUNCHES["sha256_pair"] += 1
     return out

@@ -280,3 +280,94 @@ def test_b_table_is_one_to_eight_b_in_words():
         x, y = ref.scalar_mult(k, ref.B)
         want = [(y + x) % P, (y - x) % P, 2 * ref.D * x * y % P]
         assert [_of_limbs([int(w) for w in c], 32) for c in tab[k - 1]] == want
+
+
+@pytest.fixture(scope="module")
+def sha256_lib(tmp_path_factory):
+    return _host_lib(tmp_path_factory, "sha256.cu")
+
+
+def _u32_table(text, name):
+    body = text.split(f"{name}[64] = {{")[1].split("};")[0]
+    return [int(x, 16) for x in re.findall(r"0x([0-9a-f]{8})u", body)]
+
+
+def test_sha256_kernel_constants():
+    from corda_tpu_torch.ops import sha256 as ts
+
+    text = _source("sha256.cu")
+    assert _u32_table(text, "K256") == ts.K256
+    # KW_PAD64: K[t] + W[t] over the pad block of a 64-byte message.
+    w = list(ts.PAD_BLOCK_64)
+    rotr = ts._rotr
+    for t in range(16, 64):
+        s0 = rotr(w[t - 15], 7) ^ rotr(w[t - 15], 18) ^ (w[t - 15] >> 3)
+        s1 = rotr(w[t - 2], 17) ^ rotr(w[t - 2], 19) ^ (w[t - 2] >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & M32)
+    assert _u32_table(text, "KW_PAD64") == [(k + x) & M32
+                                            for k, x in zip(ts.K256, w)]
+    h0 = re.search(r"#define SHA256_H0 \{([^}]*)\}",
+                   text.replace("\\\n", " ")).group(1)
+    assert [int(x, 16) for x in re.findall(r"0x([0-9a-f]{8})u", h0)] == \
+        ts.H0_256
+
+
+def _sha256_host(lib, msgs):
+    from corda_tpu_torch.ops import sha256 as ts
+
+    data, offsets = ts.pack_flat(msgs)
+    out = np.zeros((8, len(msgs)), np.uint32)
+    ptr = ctypes.c_void_p
+    lib.sha256_many_host.argtypes = [ptr, ptr, ptr, ctypes.c_int]
+    assert lib.sha256_many_host(data.ctypes.data, offsets.ctypes.data,
+                                out.ctypes.data, len(msgs)) == 0
+    return out
+
+
+def test_sha256_many_kernel_arithmetic_matches_hashlib(sha256_lib):
+    # Every length 0..300 (each padding regime and block count 1..5) plus
+    # long messages, in one call: the kernel pads each message itself.
+    from corda_tpu_torch.ops import sha256 as ts
+
+    msgs = [rng.bytes(n) for n in list(range(301)) + [1000, 4097]]
+    out = _sha256_host(sha256_lib, msgs)
+    assert [col.astype(">u4").tobytes() for col in out.T] == \
+        [hashlib.sha256(m).digest() for m in msgs]
+    some = msgs[::37]
+    data, offsets = ts.pack_flat(some)
+    plain = ts.sha256_flat_reference(torch.from_numpy(data.copy()),
+                                     torch.from_numpy(offsets))
+    assert np.array_equal(_sha256_host(sha256_lib, some),
+                          plain.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 8, 9])
+def test_sha256_pair_kernel_arithmetic_matches_hashlib(sha256_lib, width):
+    from corda_tpu_torch.ops import sha256 as ts
+
+    m = 4
+    level = rng.integers(0, 2**32, (8, m, width),
+                         dtype=np.uint64).astype(np.uint32)
+    wout = (width + 1) // 2
+    out = np.zeros((8, m, wout), np.uint32)
+    ptr = ctypes.c_void_p
+    sha256_lib.sha256_pair_host.argtypes = [ptr, ptr, ctypes.c_int,
+                                            ctypes.c_int]
+    assert sha256_lib.sha256_pair_host(level.ctypes.data, out.ctypes.data,
+                                       m, width) == 0
+    for t in range(m):
+        for j in range(wout):
+            pair = (level[:, t, 2 * j], level[:, t, min(2 * j + 1, width - 1)])
+            want = hashlib.sha256(b"".join(x.astype(">u4").tobytes()
+                                           for x in pair)).digest()
+            assert out[:, t, j].astype(">u4").tobytes() == want
+    plain = ts.merkle_level_reference(torch.from_numpy(level.view(np.int32)))
+    assert np.array_equal(out, plain.numpy().view(np.uint32))
+
+
+def test_sha256_wrappers_reject_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.sha256_many_cuda(torch.zeros(4, dtype=torch.uint8),
+                                 torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.sha256_pair_cuda(torch.zeros((8, 2, 3), dtype=torch.int32))

@@ -5,7 +5,8 @@ The import check reads each file's AST and matches top-level module names
 exactly, so ``corda_tpu_torch`` itself is not mistaken for ``corda_tpu``.
 A fresh interpreter then imports the port, verifies a 64-lane batch on the
 CPU through the device path's plain versions and through the host tier,
-and must end with neither jax nor corda_tpu loaded.
+primes the ids of a small transaction wave through the SHA-256 kernel's
+plain version, and must end with neither jax nor corda_tpu loaded.
 """
 
 import ast
@@ -72,6 +73,22 @@ want = [i % 5 != 0 for i in range(64)]
 got = provider.TorchVerifier(device="cpu", device_min_sigs=0).verify_batch(jobs)
 assert got.tolist() == want, got
 assert provider.CpuVerifier().verify_batch(jobs).tolist() == want
+# A small resolve wave: build, serialize, prime the ids from fresh copies.
+from corda_tpu_torch.crypto.keys import KeyPair
+from corda_tpu_torch.crypto.party import Party
+from corda_tpu_torch.serialization.codec import deserialize, serialize
+from corda_tpu_torch.testing.dummies import DummyContract
+from corda_tpu_torch.transactions.signed import SignedTransaction
+key = KeyPair.generate(b"\x62" * 32)
+notary = Party.of("N", KeyPair.generate(b"\x61" * 32).public)
+party = Party.of("P", key.public)
+stxs = []
+for i in range(3):
+    b = DummyContract.generate_initial(party.ref(bytes([i])), i, notary)
+    stxs.append(b.sign_with(key).to_signed_transaction())
+wave = [deserialize(serialize(s).bytes) for s in stxs]
+assert SignedTransaction.prime_ids(wave, device_min=0, device="cpu") == "device"
+assert [s.tx.id for s in wave] == [s.id for s in stxs]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu"))
 assert not bad, bad
