@@ -5,6 +5,12 @@ this checkout):
 
     python3 chip_smoke.py
 
+To compare the SHA-256 kernels of two checkouts on one card (each tree's
+corda_tpu_torch built and timed in its own process, in the order given,
+for example parent, change, change, parent):
+
+    python3 chip_smoke.py --sha256-turns PARENT_TREE . . PARENT_TREE
+
 Phases, in order; any failure exits non-zero and prints no result:
   1. probe    -- a CUDA device must exist; print its name and power limit.
   2. build    -- compile the three csrc/ sources with nvcc (in parallel).
@@ -43,11 +49,13 @@ Phases, in order; any failure exits non-zero and prints no result:
                  above the crossover, takes the host tier; the re-probe
                  reopens the
                  gate through the kernels; the next batch is a device batch.
- 10. sha256   -- (a) the SHA-256 kernel (sha256_many) and the Merkle pair
+ 10. sha256   -- (a) the SHA-256 kernel (sha256_many) and the Merkle reduce
                  kernel (sha256_pair) against their plain versions on the
-                 card and hashlib, tolerance 0: padding edges, a ragged
-                 N = 1,000, 1,024 pairs, an odd-width level; merkle_roots
-                 on 1-33 leaves against MerkleTree.build.
+                 card and hashlib, tolerance 0: the padding edges at every
+                 start offset mod 16, a ragged N = 1,000, N = 1, a 1 MB
+                 message; 1,024 pairs, trees of width 1-40 and 1,000 launch
+                 by launch; merkle_roots on those widths against
+                 MerkleTree.build.
  11. resolve  -- (b) a wave of 8,192 SignedTransactions (73,728 leaves; 1%
                  with a flipped signature byte) built in the port and
                  serialized; prime_ids over fresh deserializations on the
@@ -57,13 +65,16 @@ Phases, in order; any failure exits non-zero and prints no result:
                  must reject exactly the tampered transactions; a swapped
                  id must raise "does not match". Tx/s and leaves/s on the
                  host and on the card, split into deserialize, component
-                 serialize, hash, tree plus compare and verify; both
-                 kernels timed at the wave's shapes.
+                 serialize, hash, tree plus compare and verify; the card
+                 route's hash step split into pack_flat, copy in, kernel,
+                 copy out and digests_of; both SHA-256 kernels timed at the
+                 wave's shapes (the wave's trees in one reduce launch).
  12. hashing crossover -- (c) hash_many_auto on the host against the card
                  over the wave's leaf messages, 256 ... 131,072.
  13. the verify kernel's registers, static SASS counts, resident blocks
-     per SM and waves at N_MAIN; the kernels line, then the device line
-     (last).
+     per SM and waves at N_MAIN, and the SHA-256 kernels' SASS counts (no
+     byte loads in sha256_many's block loop) and occupancy at the wave;
+     the kernels line, then the device line (last).
 
 Everything is made from fixed seeds; the oracle (crypto/ref_ed25519.py)
 decides every expected answer.
@@ -891,7 +902,10 @@ def phase_degrade(provider, kernels, jobs, want):
 
 # --- the resolve path: SHA-256 kernels, the transaction wave, crossover -----
 
-SHA_EDGES = (0, 1, 55, 56, 63, 64, 65, 119, 120, 128, 200, 1000)
+# The padding boundaries, the wave's leaf sizes (a 166-byte command leaf,
+# 317-318-byte output leaves), a many-block message and 1 MB.
+SHA_EDGES = (0, 1, 55, 56, 63, 64, 65, 119, 120, 166, 317, 318, 1000)
+SHA_MEGABYTE = 1 << 20
 N_RAGGED = 1000
 # bench.py's bench_resolve_ids wave (2,048 transactions) scaled to 8,192:
 # DummyContract.generate_initial plus 7 more DummySingleOwnerState outputs
@@ -922,26 +936,65 @@ def leaf_level(leaf_groups, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(dev)
 
 
-def reduce_levels(level_fn, level):
+def root_depth(width: int, most: int) -> int:
+    """The depth of merkle_roots' next launch on ``width`` nodes."""
+    return min(most, (width - 1).bit_length())
+
+
+def reduce_roots(reduce_fn, level, most: int):
+    """merkle_roots' loop: ``reduce_fn(level, depth)`` until one node."""
     while level.shape[2] > 1:
-        level = level_fn(level)
+        level = reduce_fn(level, root_depth(level.shape[2], most))
     return level
+
+
+def plain_reduce(tsha256, level, depth):
+    for _ in range(depth):
+        level = tsha256.merkle_level_reference(level)
+    return level
+
+
+def aligned_messages(rng):
+    """The edge lengths at every start offset mod 16: before each message a
+    spacer message brings the next start to the wanted residue."""
+    msgs, pos = [], 0
+    for n in SHA_EDGES:
+        for r in range(16):
+            spacer = rng.bytes((r - pos) % 16)
+            msgs += [spacer, rng.bytes(n)]
+            pos += len(spacer) + n
+    return msgs
 
 
 def phase_sha256_kernels(tsha256, kernels, dev, rng):
     """Phase 10 (a): both SHA-256 kernels against their plain versions on
-    the card and against hashlib, tolerance 0 (digests are bits):
-    sha256_many on the padding edges and a seeded ragged N = 1,000;
-    sha256_pair on seeded (8, 1,024) pairs and an odd-width level;
-    merkle_roots on 1-33 leaves against the port's MerkleTree.build."""
+    the card and against hashlib, tolerance 0 (digests are bits).
+    sha256_many: the edge lengths at every start offset mod 16, in a buffer
+    that starts at 0 and at 3 mod 16 and ends at its last message's last
+    byte with 0xff bytes behind it; a seeded ragged N = 1,000 (not a
+    multiple of the CTA's 64); N = 1; a 1 MB message beside short ones
+    (against hashlib only: the plain version would take minutes). The pair
+    kernel: one level of (8, 1,024) pairs against hashlib; trees of width
+    1-40 and 1,000 reduced as merkle_roots reduces them, each launch
+    against the plain level looped; merkle_roots on those widths against
+    MerkleTree.build."""
     from corda_tpu_torch.crypto.hashes import SecureHash
     from corda_tpu_torch.crypto.merkle import MerkleTree
 
     max_err = {"sha256_many": 0, "sha256_pair": 0}
-    edges = [rng.bytes(n) for n in SHA_EDGES for _ in range(3)]
+    edges = aligned_messages(rng)
     ragged = [rng.bytes(int(k)) for k in rng.integers(0, 1200, N_RAGGED)]
-    for name, msgs in (("padding edges", edges), ("ragged batch", ragged)):
-        data, offsets = flat_tensors(tsha256, msgs, dev)
+    cases = [("edges at 0 mod 16", edges, 0), ("edges at 3 mod 16", edges, 3),
+             ("ragged batch", ragged, 0), ("N = 1", [rng.bytes(317)], 5)]
+    for name, msgs, lead in cases:
+        flat, offsets = tsha256.pack_flat(msgs)
+        room = torch.full((flat.size + 64,), 0xFF, dtype=torch.uint8,
+                          device=dev)
+        start = (lead - room.data_ptr()) % 16
+        data = room[start:start + flat.size]
+        data.copy_(torch.from_numpy(flat.copy()))
+        check(data.data_ptr() % 16 == lead, f"{name}: view misaligned")
+        offsets = torch.from_numpy(offsets).to(dev)
         k = kernels.sha256_many_cuda(data, offsets)
         p = tsha256.sha256_flat_reference(data, offsets)
         torch.cuda.synchronize()
@@ -950,34 +1003,51 @@ def phase_sha256_kernels(tsha256, kernels, dev, rng):
         check(tsha256.digests_of(k) == [hashlib.sha256(m).digest()
                                         for m in msgs],
               f"sha256_many kernel != hashlib on the {name}")
+    big = [rng.bytes(3), rng.bytes(SHA_MEGABYTE), rng.bytes(166)]
+    k = kernels.sha256_many_cuda(*flat_tensors(tsha256, big, dev))
+    check(tsha256.digests_of(k) == [hashlib.sha256(m).digest() for m in big],
+          "sha256_many kernel != hashlib on a 1 MB message")
+
     pairs = torch.from_numpy(rng.integers(
         0, 2**32, (8, 1024, 2), dtype=np.uint64).astype(np.uint32).view(
         np.int32)).to(dev)
-    k = kernels.sha256_pair_cuda(pairs)[:, :, 0]
+    k = kernels.merkle_reduce_cuda(pairs, 1)[:, :, 0]
     p = tsha256.sha256_pair_words_reference(pairs[:, :, 0].contiguous(),
                                             pairs[:, :, 1].contiguous())
-    odd = torch.from_numpy(rng.integers(
-        0, 2**32, (8, 64, 9), dtype=np.uint64).astype(np.uint32).view(
-        np.int32)).to(dev)
-    k_odd = kernels.sha256_pair_cuda(odd)
-    p_odd = tsha256.merkle_level_reference(odd)
     torch.cuda.synchronize()
-    max_err["sha256_pair"] = max(max_err_of(k, p), max_err_of(k_odd, p_odd))
-    check(torch.equal(k, p) and torch.equal(k_odd, p_odd),
-          "sha256_pair kernel != plain")
+    max_err["sha256_pair"] = max_err_of(k, p)
+    check(torch.equal(k, p), "sha256_pair kernel != plain on 1,024 pairs")
     host = pairs.cpu().numpy().view(np.uint32)
     check(tsha256.digests_of(k) == [hashlib.sha256(
         host[:, i, 0].astype(">u4").tobytes()
         + host[:, i, 1].astype(">u4").tobytes()).digest()
         for i in range(1024)], "sha256_pair kernel != hashlib")
-    groups = [[rng.bytes(32) for _ in range(n)] for n in range(1, 34)]
+    most = kernels.MERKLE_DEPTH
+    widths = list(range(1, 41)) + [1000]
+    for width in widths:
+        level = torch.from_numpy(rng.integers(
+            0, 2**32, (8, 8, width), dtype=np.uint64).astype(np.uint32).view(
+            np.int32)).to(dev)
+        while level.shape[2] > 1:
+            depth = root_depth(level.shape[2], most)
+            k = kernels.merkle_reduce_cuda(level, depth)
+            p = plain_reduce(tsha256, level, depth)
+            torch.cuda.synchronize()
+            max_err["sha256_pair"] = max(max_err["sha256_pair"],
+                                         max_err_of(k, p))
+            check(torch.equal(k, p), f"sha256_pair kernel != plain at width "
+                                     f"{level.shape[2]}, depth {depth}")
+            level = k
+    groups = [[rng.bytes(32) for _ in range(n)] for n in widths]
     check(tsha256.merkle_roots(groups, device="cuda") == [
         MerkleTree.build([SecureHash(h) for h in g]).hash.bytes
         for g in groups], "merkle_roots on the card != MerkleTree.build")
     log(f"sha256 kernels vs plain on the card (tolerance 0): sha256_many on "
-        f"{len(edges)} padding-edge and {N_RAGGED} ragged messages, "
-        f"sha256_pair on 1,024 pairs and a 9-wide level, identical and = "
-        f"hashlib; merkle_roots on 1-33 leaves = MerkleTree.build")
+        f"{len(edges)} messages starting at every offset mod 16 (buffers at "
+        f"0 and 3 mod 16), {N_RAGGED} ragged messages and N = 1, identical "
+        f"and = hashlib, a 1 MB message = hashlib; sha256_pair on 1,024 "
+        f"pairs (= hashlib) and trees of width 1-40 and 1,000 launch by "
+        f"launch; merkle_roots on those widths = MerkleTree.build")
     return max_err
 
 
@@ -1114,7 +1184,7 @@ def phase_resolve(provider, tsha256, kernels, dev, rng, card):
     check(accepts == want,
           f"verify_batch rejected {[i for i, a in enumerate(accepts) if not a]}"
           f" but the tampered transactions are {sorted(tampered)}")
-    check(launches["sha256_many"] == 1 and launches["sha256_pair"] > 0
+    check(launches["sha256_many"] == 1 and launches["sha256_pair"] == 1
           and min(launches[k] for k in VERIFY_KERNELS) > 0
           and card_v.device_batches >= 1,
           f"the resolve wave did not launch every kernel: {launches}")
@@ -1160,6 +1230,11 @@ def phase_resolve(provider, tsha256, kernels, dev, rng, card):
                     f"{k} {v:.1f}" for k, v in sp["ms"].items())
                 + f" (total {sp['total_ms']:.1f})")
 
+    # The card route's hash step split into its parts, host clock, each
+    # part synchronised, medians of 5: pack_flat, the copy in, the kernel,
+    # the copy out and digests_of.
+    hash_split = hash_step_split(tsha256, kernels, flat, dev)
+
     # Kernel times at the wave's shapes.
     data, offsets = flat_tensors(tsha256, flat, dev)
     lengths = np.diff(offsets.cpu().numpy())
@@ -1178,29 +1253,36 @@ def phase_resolve(provider, tsha256, kernels, dev, rng, card):
             "max_err": max_err_of(k_many, p_many), "blocks": blocks,
             "messages": len(flat),
             "bytes": int(data.numel()) + 8 * (len(flat) + 1) + 32 * len(flat),
-            "launches": launches["sha256_many"]}
+            "launches": launches["sha256_many"], "hash_split": hash_split}
     level0 = leaf_level(leaves, dev)
-    k_root = reduce_levels(kernels.sha256_pair_cuda, level0)
-    p_root = reduce_levels(tsha256.merkle_level_reference, level0)
+    most = kernels.MERKLE_DEPTH
+
+    def card_roots():
+        return reduce_roots(kernels.merkle_reduce_cuda, level0, most)
+
+    k_root = card_roots()
+    p_root = reduce_roots(lambda lv, d: plain_reduce(tsha256, lv, d), level0,
+                          most)
     torch.cuda.synchronize()
     check(torch.equal(k_root, p_root), "sha256_pair kernel != plain on the wave")
-    nodes = pair_bytes = 0
-    width = level0.shape[2]
+    # The bound's work: every node of the wave's trees (the same whatever
+    # reduces them); its bytes: the leaves read once, the roots written once.
+    nodes, width = 0, level0.shape[2]
     while width > 1:
-        wout = (width + 1) // 2
-        nodes += N_WAVE * wout
-        pair_bytes += 32 * N_WAVE * (width + wout)
-        width = wout
-    pair = {"ms": kernel_ms(lambda: reduce_levels(kernels.sha256_pair_cuda,
-                                                  level0)),
+        width = (width + 1) // 2
+        nodes += N_WAVE * width
+    pair = {"ms": kernel_ms(card_roots),
             "wrapper_host_us": wrapper_host_us(
-                lambda: kernels.sha256_pair_cuda(level0), calls=100),
-            "plain_ms": idle_stream_ms(lambda: reduce_levels(
-                tsha256.merkle_level_reference, level0), reps=2),
+                lambda: kernels.merkle_reduce_cuda(
+                    level0, root_depth(level0.shape[2], most)), calls=100),
+            "plain_ms": idle_stream_ms(lambda: reduce_roots(
+                lambda lv, d: plain_reduce(tsha256, lv, d), level0, most),
+                reps=2),
             "hashlib_ms": host_ms(lambda: [MerkleTree.build(
                 [SecureHash(h) for h in g]).hash for g in leaves], reps=3),
             "max_err": max_err_of(k_root, p_root), "nodes": nodes,
-            "bytes": pair_bytes, "launches": launches["sha256_pair"]}
+            "bytes": 32 * (int(level0.shape[1] * level0.shape[2]) + N_WAVE),
+            "launches": launches["sha256_pair"]}
     # Both verify kernels on the wave's 8,192 signatures, as verify_batch
     # packed them.
     verify_ms = kernel_ms(lambda: packed.verify_fn(*packed.tensors))
@@ -1211,7 +1293,7 @@ def phase_resolve(provider, tsha256, kernels, dev, rng, card):
         f"(wrapper {many['wrapper_host_us']:.1f} us/call, plain "
         f"{many['plain_ms']:.1f} ms, hashlib on the host "
         f"{many['hashlib_ms']:.1f} ms); sha256_pair {pair['ms']:.4f} ms for "
-        f"the wave's {launches['sha256_pair']} level launches, {nodes} nodes "
+        f"the wave's {launches['sha256_pair']} launch(es), {nodes} nodes "
         f"(wrapper {pair['wrapper_host_us']:.1f} us/call, plain "
         f"{pair['plain_ms']:.1f} ms, host trees {pair['hashlib_ms']:.1f} ms);"
         f" challenge + verify kernels on the wave's signatures "
@@ -1220,6 +1302,8 @@ def phase_resolve(provider, tsha256, kernels, dev, rng, card):
         f"{(t3 - t2) * 1e3:.1f} ms, host prime_ids {host_prime_ms:.1f} ms; "
         f"the kernels are busy {busy / e2e_card_ms:.3e} of the card path's "
         f"wall (device idle {1 - busy / e2e_card_ms:.6f})")
+    log(f"{card} | the card route's hash step (host clock, medians of 5): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in hash_split.items()))
     return {"build_s": build_s, "n_tx": N_WAVE, "leaves": n_leaves,
             "tampered": len(tampered), "launches": launches,
             "host_prime_ids_ms": host_prime_ms,
@@ -1229,6 +1313,27 @@ def phase_resolve(provider, tsha256, kernels, dev, rng, card):
             "verify_kernels_ms": verify_ms,
             "device_idle_share": 1 - busy / e2e_card_ms,
             "sha256_many": many, "sha256_pair": pair}, flat
+
+
+def hash_step_split(tsha256, kernels, flat, dev) -> dict:
+    """hash_many_auto's card route over the wave's leaf messages, step by
+    step on the host clock (each step synchronised), medians of 5; the
+    whole call beside the sum of its steps."""
+    data, offsets = tsha256.pack_flat(flat)
+    d_dev = torch.from_numpy(data.copy()).to(dev)
+    o_dev = torch.from_numpy(offsets).to(dev)
+    words = kernels.sha256_many_cuda(d_dev, o_dev)
+    host_words = words.cpu()
+    out = {"pack_flat": host_ms(lambda: tsha256.pack_flat(flat)),
+           "copy_in": host_ms(lambda: (torch.from_numpy(data.copy()).to(dev),
+                                       torch.from_numpy(offsets).to(dev))),
+           "kernel": host_ms(lambda: kernels.sha256_many_cuda(d_dev, o_dev)),
+           "copy_out": host_ms(lambda: words.cpu()),
+           "digests_of": host_ms(lambda: tsha256.digests_of(host_words))}
+    out["sum"] = sum(out.values())
+    out["hash_many_auto"] = host_ms(lambda: tsha256.hash_many_auto(
+        flat, device_min=0, device="cuda"))
+    return out
 
 
 def phase_hash_crossover(tsha256, flat, card):
@@ -1348,6 +1453,51 @@ def occupancy(lib, blocks_n: int) -> dict[str, int]:
             "waves": -(-grid // (blocks.value * sms))}
 
 
+SHA_LOOP_KEYS = ("LDG", "LDGSTS", "LDS", "PRMT", "SHF", "IADD3", "LOP3")
+
+
+def sha_sass_summary(nvcc: str, lib: str, kernel: str) -> dict:
+    """Static SASS counts of a SHA-256 kernel: its total, and in its largest
+    loop (sha256_many: the block loop; the pair kernel: the level loop) the
+    total, the loads and the instructions of the rounds, and the byte
+    loads (LDG.*U8) anywhere in that loop."""
+    ins = sass_instructions(nvcc, lib, kernel)
+    loop = largest_loop(ins)
+    counts = opcode_counts(loop)
+    return {"total": len(ins), "loop_total": len(loop),
+            "loop": {k: counts.get(k, 0) for k in SHA_LOOP_KEYS},
+            "loop_byte_loads": sum(1 for _, op, _ in loop
+                                   if op.startswith("LDG") and "U8" in op),
+            "top": dict(list(opcode_counts(ins).items())[:10])}
+
+
+def sha_occupancy(lib, n_messages: int, tree_width: int, depth: int,
+                  trees: int) -> dict:
+    """Resident CTAs per SM, threads per CTA, grid and waves of both SHA-256
+    kernels at the wave's shapes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, threads, chunks = (ctypes.c_int(0) for _ in range(3))
+    fn = lib.sha256_many_occupancy
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    check(fn(ctypes.byref(blocks), ctypes.byref(threads)) == 0,
+          "sha256_many occupancy query failed")
+    grid = -(-n_messages // threads.value)
+    many = {"blocks_per_sm": blocks.value, "threads": threads.value,
+            "grid": grid, "waves": -(-grid // (blocks.value * sms)),
+            "ctas_per_sm": grid / sms}
+    fn = lib.merkle_reduce_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    check(fn(trees, tree_width, depth, sms, ctypes.byref(blocks),
+             ctypes.byref(threads), ctypes.byref(chunks)) == 0,
+          "sha256_pair occupancy query failed")
+    grid = -(-trees * -(-tree_width // 2**depth) // chunks.value)
+    pair = {"blocks_per_sm": blocks.value, "threads": threads.value,
+            "chunks_per_cta": chunks.value, "grid": grid,
+            "waves": -(-grid // (blocks.value * sms)),
+            "ctas_per_sm": grid / sms}
+    return {"sms": sms, "sha256_many": many, "sha256_pair": pair}
+
+
 def bound_ms(nbytes: int, int_ops: int) -> tuple[float, str]:
     """The least milliseconds to move ``nbytes`` or to issue ``int_ops``
     32-bit integer operations on this card, and which one binds."""
@@ -1359,6 +1509,137 @@ def bound_ms(nbytes: int, int_ops: int) -> tuple[float, str]:
 def out_dir() -> str:
     return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "chiprun_out")
+
+
+# --- parent against change: the SHA-256 kernels of two trees in turns ------
+
+
+def sha256_time(tree: str, inputs: str) -> int:
+    """One turn: import corda_tpu_torch from ``tree`` (a checkout), build
+    its kernels, check both SHA-256 kernels on the saved wave against the
+    saved digests and roots, time them in the device window (medians of
+    7) and print one line ``SHA256_TURN {json}``. A tree whose wrappers
+    predate merkle_reduce_cuda reduces one level a launch."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    from corda_tpu_torch.ops import _build, kernels
+    from corda_tpu_torch.ops import sha256 as tsha256
+
+    check(os.path.abspath(kernels.__file__).startswith(tree + os.sep),
+          f"corda_tpu_torch came from {kernels.__file__}, not {tree}")
+    libs = _build.build_all()
+    dev = torch.device("cuda")
+    d = np.load(inputs)
+    data = torch.from_numpy(d["data"]).to(dev)
+    offsets = torch.from_numpy(d["offsets"]).to(dev)
+    level0 = torch.from_numpy(d["level"]).to(dev)
+    if hasattr(kernels, "merkle_reduce_cuda"):
+        most = kernels.MERKLE_DEPTH
+
+        def pair_fn():
+            return reduce_roots(kernels.merkle_reduce_cuda, level0, most)
+    else:
+        def pair_fn():
+            return reduce_roots(lambda lv, _d: kernels.sha256_pair_cuda(lv),
+                                level0, 1)
+
+    def many_fn():
+        return kernels.sha256_many_cuda(data, offsets)
+
+    kernels.reset_launches()
+    digests, roots = many_fn(), pair_fn()[:, :, 0]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(b"".join(tsha256.digests_of(digests)) == d["digests"].tobytes(),
+          f"{tree}: sha256_many != hashlib on the wave")
+    check(b"".join(tsha256.digests_of(roots)) == d["roots"].tobytes(),
+          f"{tree}: the pair kernel's roots != the wave's ids")
+    nvcc = _build.find_nvcc()
+    out = {"tree": tree, "sha256_many_ms": kernel_ms(many_fn),
+           "sha256_pair_ms": kernel_ms(pair_fn),
+           "launches": {k: launches[k] for k in ("sha256_many", "sha256_pair")},
+           "ptxas": ptxas_summary(_build, "sha256.cu"),
+           "sass": {k: sha_sass_summary(nvcc, libs["sha256.cu"], f"{k}_kernel")
+                    for k in ("sha256_many", "sha256_pair")}}
+    print("SHA256_TURN " + json.dumps(out), flush=True)
+    return 0
+
+
+def sha256_turns(trees: list[str]) -> int:
+    """Build the resolve wave once, then time both SHA-256 kernels of each
+    tree in the order given (parent, change, change, parent), each in its
+    own process (sha256_time); print every turn and the shares of the
+    operation bound, and write chiprun_out/sha256_turns.json."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    from corda_tpu_torch.ops import sha256 as tsha256
+    from corda_tpu_torch.serialization.codec import deserialize
+    from corda_tpu_torch.transactions import signed
+    from corda_tpu_torch.transactions.signed import SignedTransaction
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    blobs, ids, _ = build_wave(np.random.default_rng(SEED))
+    batch = [deserialize(b) for b in blobs]
+    SignedTransaction.prime_ids(batch, device_min=NEVER, device="cpu")
+    flat, _ = signed.component_blobs([x.tx for x in batch])
+    leaves = [[h.bytes for h in x.tx.all_leaves_hashes] for x in batch]
+    data, offsets = tsha256.pack_flat(flat)
+    level = leaf_level(leaves, "cpu").numpy()
+    tmp = tempfile.mkdtemp(prefix="sha256_turns")
+    inputs = os.path.join(tmp, "wave.npz")
+    np.savez(inputs, data=data, offsets=offsets, level=level,
+             digests=np.frombuffer(b"".join(hashlib.sha256(m).digest()
+                                            for m in flat), np.uint8),
+             roots=np.frombuffer(b"".join(ids), np.uint8))
+    blocks = int(((np.diff(offsets) + 8) // 64 + 1).sum())
+    nodes, width = 0, level.shape[2]
+    while width > 1:
+        width = (width + 1) // 2
+        nodes += level.shape[1] * width
+    bounds = {"sha256_many": bound_ms(
+                  data.size + 8 * len(offsets) + 32 * len(flat),
+                  blocks * SHA256_BLOCK_INT_OPS),
+              "sha256_pair": bound_ms(
+                  32 * (level.shape[1] * level.shape[2] + level.shape[1]),
+                  nodes * (SHA256_BLOCK_INT_OPS + SHA256_PAD_BLOCK_INT_OPS))}
+    turns = []
+    try:
+        for tree in trees:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--sha256-time",
+                 tree, inputs], capture_output=True, text=True, timeout=600)
+            line = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("SHA256_TURN ")]
+            check(proc.returncode == 0 and len(line) == 1,
+                  f"turn in {tree} failed (rc {proc.returncode}):\n"
+                  f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            turn = json.loads(line[0].split(" ", 1)[1])
+            turns.append(turn)
+            log(f"{card} | turn {len(turns)} {tree}: sha256_many "
+                f"{turn['sha256_many_ms']:.4f} ms "
+                f"({bounds['sha256_many'][0] / turn['sha256_many_ms']:.1%} of "
+                f"{bounds['sha256_many'][0]:.4f}), sha256_pair "
+                f"{turn['sha256_pair_ms']:.4f} ms "
+                f"({bounds['sha256_pair'][0] / turn['sha256_pair_ms']:.1%} of "
+                f"{bounds['sha256_pair'][0]:.4f}); launches {turn['launches']}")
+            for k, v in turn["sass"].items():
+                log(f"  sass {k}_kernel: {v['total']} instructions; largest "
+                    f"loop {v['loop_total']}: {v['loop']}, byte loads "
+                    f"{v['loop_byte_loads']}")
+            log(f"  ptxas: {turn['ptxas']}")
+    finally:
+        for name in os.listdir(tmp):
+            os.remove(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    os.makedirs(out_dir(), exist_ok=True)
+    with open(os.path.join(out_dir(), "sha256_turns.json"), "w") as f:
+        json.dump({"card": card, "bounds": bounds, "blocks": blocks,
+                   "nodes": nodes, "turns": turns}, f, indent=1)
+    return 0
 
 
 def main() -> int:
@@ -1408,6 +1689,15 @@ def main() -> int:
     log(f"ed25519_verify_kernel occupancy: {occ['blocks_per_sm']} blocks of "
         f"{occ['threads']} per SM x {occ['sms']} SMs; N={N_MAIN} is "
         f"{occ['grid']} blocks = {occ['waves']} wave(s)")
+    sha_sass = {k: sha_sass_summary(_build.find_nvcc(), libs["sha256.cu"],
+                                    f"{k}_kernel")
+                for k in ("sha256_many", "sha256_pair")}
+    for k, v in sha_sass.items():
+        log(f"sass {k}_kernel: {v['total']} instructions; largest loop "
+            f"{v['loop_total']}: {v['loop']}, byte loads "
+            f"{v['loop_byte_loads']}; {v['top']}")
+    check(sha_sass["sha256_many"]["loop_byte_loads"] == 0,
+          "sha256_many's block loop loads message bytes one at a time")
 
     # 3. the host tier's native core
     host_res = phase_host_tier(ref, provider, native, fast_ed25519)
@@ -1453,6 +1743,18 @@ def main() -> int:
         f"({main_res['verify_least_per_sig']} per signature); the kernel's "
         f"fixed windows {bound_ms(0, structure_ops)[0]:.4f} ms")
     many, pair = resolve_res["sha256_many"], resolve_res["sha256_pair"]
+    sha_occ = sha_occupancy(_build.load("sha256.cu"), many["messages"],
+                            OUTPUTS_PER_TX + 1,
+                            root_depth(OUTPUTS_PER_TX + 1,
+                                       kernels.MERKLE_DEPTH),
+                            N_WAVE)
+    for k in ("sha256_many", "sha256_pair"):
+        o = sha_occ[k]
+        log(f"{k}_kernel occupancy: {o['blocks_per_sm']} CTAs of "
+            f"{o['threads']} per SM x {sha_occ['sms']} SMs; the wave is "
+            f"{o['grid']} CTAs ({o['ctas_per_sm']:.2f} an SM) = {o['waves']} "
+            f"wave(s)" + (f", {o['chunks_per_cta']} trees a CTA"
+                          if k == "sha256_pair" else ""))
     bound3, by3 = bound_ms(many["bytes"], many["blocks"] * SHA256_BLOCK_INT_OPS)
     bound4, by4 = bound_ms(pair["bytes"], pair["nodes"] * (
         SHA256_BLOCK_INT_OPS + SHA256_PAD_BLOCK_INT_OPS))
@@ -1505,6 +1807,7 @@ def main() -> int:
               "sass_ed25519_verify_summary": verify_sass_summary(sass1),
               "sass_ed25519_verify_window_loop": loop1,
               "ed25519_verify_occupancy": occ,
+              "sass_sha256": sha_sass, "sha256_occupancy": sha_occ,
               "verify_structure_bound_ms": bound_ms(0, structure_ops)[0],
               **line}
     os.makedirs(out_dir(), exist_ok=True)
@@ -1519,4 +1822,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sha256-turns"]:
+        raise SystemExit(sha256_turns(sys.argv[2:]))
+    if sys.argv[1:2] == ["--sha256-time"]:
+        raise SystemExit(sha256_time(*sys.argv[2:4]))
     raise SystemExit(main())

@@ -1,42 +1,68 @@
 // Batched SHA-256 for the resolve path: the component-leaf hash of many
-// messages (sha256_many_kernel) and the Merkle node hash (sha256_pair_kernel),
-// one thread per message or per node.
+// messages (sha256_many_kernel) and the reduction of many Merkle trees
+// (sha256_pair_kernel).
 //
 // Replaces two XLA graphs of corda_tpu/ops/sha256_jax.py:
 //   * sha256_blocks (:90, its compression _compress at :66), driven by
 //     sha256_many (:139): there the host pads each message in a Python loop
 //     into (nblocks, 16, N) words and launches once per block-count bucket.
 //     Here the host makes one byte buffer and N + 1 int64 offsets in a
-//     single vectorized pass, and each thread pads its own message while it
-//     reads it: any mix of lengths rides one launch. Out: (8, N) state words
-//     (the big-endian digest words), word-major with lanes minor, so a
-//     warp's stores coalesce.
-//   * sha256_pair_words (:170), driven by merkle_roots_device (:209): a
-//     level of m trees of `width` nodes, (8, m, width) words, reduces to
-//     (8, m, ceil(width / 2)); one launch a level. The odd node is hashed
-//     with itself by clamping the right child's index (the host
-//     concatenate of sha256_jax.py:231-234 is gone). A node is two
-//     compressions: the 64-byte data block, then the constant pad block of
-//     a 64-byte message, whose whole schedule is constant: its 64 K[t] +
-//     W[t] sums are KW_PAD64 below (tests/test_torch_csrc.py recomputes
-//     them), so the second compression has no schedule work.
+//     single vectorized pass, and the kernel pads each message itself: any
+//     mix of lengths rides one launch. Out: (8, N) state words (the
+//     big-endian digest words), word-major with lanes minor.
+//   * sha256_pair_words (:170), driven by merkle_roots_device (:209), which
+//     reduces m trees one level a launch. Here one launch reduces every
+//     aligned chunk of 2^depth leaves of each tree to one node, level by
+//     level in shared memory: (8, m, width) words -> (8, m, ceil(width /
+//     2^depth)). The odd node is hashed with itself by clamping the right
+//     child's index to the level's last node (the host concatenate of
+//     sha256_jax.py:231-234 is gone). A node is two compressions: the
+//     64-byte data block, then the constant pad block of a 64-byte message,
+//     whose 64 K[t] + W[t] sums are KW_PAD64 below (tests/test_torch_csrc.py
+//     recomputes them), so the second compression has no schedule work.
 //
-// What bounds it on an H100: 32-bit integer ALU work. A block is at least
-// 64 rounds of 14 instructions (3 SHF rotates and a LOP3 for each Sigma,
-// a LOP3 for Ch and for Maj, IADD3 pairs for t1 and one IADD3 each for the
-// new a and e) and 48 schedule words of 10, plus 8 adds into the state:
-// 1,384 (chip_smoke.py's SHA256_BLOCK_INT_OPS); the pad block 904. Against
-// that a block moves at most 64 bytes. Design, simple first: the round
-// constants in __constant__ memory, where every lane of a warp reads the
-// same entry (a broadcast, folded into the IADD3's constant operand); the
-// 16-word schedule window in registers (compressions fully unrolled); the
-// message read a byte at a time through the read-only cache (messages lie
-// at any byte offset). Threads of a warp whose messages differ in block
-// count wait for the longest; the host does not sort.
+// What bounds both on an H100: 32-bit integer ALU work. A block is at least
+// 64 rounds of 14 instructions (3 SHF rotates and a LOP3 for each Sigma, a
+// LOP3 for Ch and for Maj, IADD3 pairs for t1 and one IADD3 each for the new
+// a and e) and 48 schedule words of 10, plus 8 adds into the state: 1,384
+// (chip_smoke.py's SHA256_BLOCK_INT_OPS); the pad block 904. Against that a
+// block moves at most 64 bytes. So the design keeps every instruction that
+// is not a round or a schedule word out of the block loop:
+//   * sha256_many: a CTA owns MANY_THREADS consecutive messages, one thread
+//     each; their bytes are one run of the buffer. At step k the whole CTA
+//     copies block k of each of its messages into a ring of shared memory
+//     with 16-byte cp.async: the block of a message at byte address a lies
+//     inside the five aligned chunks from (a + 64k) & ~15, and consecutive
+//     threads copy consecutive chunks of one message, so a warp's copy
+//     touches a few sectors, not 32. The ring has MANY_STAGES stages: block
+//     k + 2 is in flight while block k is compressed. The owning thread then
+//     makes each big-endian word of its window with one PRMT
+//     (window_words); only the last one or two blocks of a message pay for
+//     the 0x80 byte and the bit length (tail_word). Offsets inside the CTA
+//     are 32-bit, relative to its aligned base, computed once. Windows are
+//     aligned on absolute addresses: an aligned chunk never starts before
+//     the 16-byte-aligned storage that holds the buffer, and a chunk that
+//     runs past the buffer's end is cut there (cp.async zero-fills the
+//     rest). Lanes whose message has ended skip the compression; the CTA
+//     steps to its longest message, so any length fits in bounded shared
+//     memory.
+//   * sha256_pair_kernel: a CTA takes consecutive chunks (several trees;
+//     about one CTA an SM), loads their leaves with coalesced reads (for
+//     each word row, a run of trees is contiguous) and reduces them level by
+//     level in shared memory, one thread a node. A level's nodes are
+//     numbered densely onto consecutive threads, so the upper levels keep
+//     whole warps, and with one CTA an SM those warps spread over its four
+//     schedulers (several CTAs an SM would each stack their few upper-level
+//     warps on the same schedulers). Only the last level's nodes go back to
+//     device memory.
+// The round constants stay in __constant__ memory, indexed at compile time
+// in the unrolled rounds (a broadcast folded into the IADD3's constant).
 //
 // Compiled without nvcc (as C++), the file exports sha256_many_host and
-// sha256_pair_host, which the CPU tests use to hold this exact code against
-// hashlib.
+// merkle_reduce_host, which run the kernels' schedules (the copies, the
+// windows, the masks, the dense node numbering and the clamps) CTA by CTA;
+// the CPU tests hold them against hashlib. Only cp.async, the barriers and
+// the shared-memory declarations are device-only.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -44,14 +70,16 @@
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 #define HD __device__ __forceinline__
+#define HOST_HD __host__ __device__ __forceinline__
 #define CONST_MEM __constant__
 #define UNROLL _Pragma("unroll")
-#define LOAD_BYTE(p) __ldg(p)
 #else
+#include <stdlib.h>
+#include <string.h>
 #define HD static inline
+#define HOST_HD static inline
 #define CONST_MEM
 #define UNROLL
-#define LOAD_BYTE(p) (*(p))
 #endif
 
 static CONST_MEM const uint32_t K256[64] = {
@@ -128,46 +156,207 @@ HD void sha256_compress_pad64(uint32_t st[8]) {
   UNROLL for (int i = 0; i < 8; i++) st[i] += v[i];
 }
 
-// Big-endian word at byte `pos` of the padded message of `len` bytes whose
-// padded length is `total` (a multiple of 64): message bytes, then 0x80,
-// zeros, and the bit length in the last 8 bytes.
-HD uint32_t padded_word(const uint8_t* msg, int64_t len, int64_t pos,
-                        int64_t total) {
-  const uint64_t bits = (uint64_t)len * 8;
-  if (pos == total - 8) return (uint32_t)(bits >> 32);
-  if (pos == total - 4) return (uint32_t)bits;
-  uint32_t w = 0;
-  for (int k = 0; k < 4; k++) {
-    const int64_t p = pos + k;
-    const uint32_t byte = p < len ? (uint32_t)LOAD_BYTE(msg + p)
-                                  : (p == len ? 0x80u : 0u);
-    w = (w << 8) | byte;
-  }
-  return w;
+// ---------------------------------------------------------------------------
+// sha256_many: the staged-window schedule.
+
+#define MANY_THREADS 64   // messages (and threads) a CTA
+#define MANY_STAGES 3     // ring stages: copies run two blocks ahead
+#define WINDOW_CHUNKS 5   // aligned 16-byte chunks that hold any 64 bytes
+#define WINDOW_WORDS (4 * WINDOW_CHUNKS)
+#define STAGE_BYTES (MANY_THREADS * WINDOW_WORDS * 4)
+
+// Blocks of the padded message of `len` bytes (len < 2^31).
+HD uint32_t nblocks_of(uint32_t len) { return (len + 8) / 64 + 1; }
+
+// One of a thread's WINDOW_CHUNKS copies a step: the chunk's byte offset
+// from the CTA's aligned base at block 0, and its message's block count
+// (0 past the last message). Copy e of a CTA is chunk e % 5 of its message
+// e / 5, and lands at byte 16 e of the stage: a message's five chunks are
+// adjacent in the buffer and in the ring.
+struct ManyCopy {
+  uint32_t rel;
+  uint32_t nb;
+};
+
+// The CTA's aligned base: its first message's address rounded down to 16.
+HD uint64_t many_cta_base(uint64_t base, const int64_t* offsets, int first) {
+  return (base + (uint64_t)offsets[first]) & ~(uint64_t)15;
 }
 
-HD void sha256_message(uint32_t st[8], const uint8_t* msg, int64_t len) {
-  const uint32_t h0[8] = SHA256_H0;
-  UNROLL for (int i = 0; i < 8; i++) st[i] = h0[i];
-  const int64_t total = ((len + 8) / 64 + 1) * 64;
-  for (int64_t base = 0; base < total; base += 64) {
-    uint32_t W[16];
-    UNROLL for (int k = 0; k < 16; k++)
-      W[k] = padded_word(msg, len, base + 4 * k, total);
-    sha256_compress(st, W);
+HD ManyCopy many_copy(const int64_t* offsets, int n, int first, uint64_t base,
+                      uint64_t cta_base, int e) {
+  const int msg = e / WINDOW_CHUNKS, chunk = e - msg * WINDOW_CHUNKS;
+  const int i = first + msg;
+  ManyCopy cp = {0u, 0u};
+  if (i < n) {
+    const int64_t lo = offsets[i];
+    cp.nb = nblocks_of((uint32_t)(offsets[i + 1] - lo));
+    cp.rel = (uint32_t)(((base + (uint64_t)lo) & ~(uint64_t)15) - cta_base) +
+             16u * (uint32_t)chunk;
+  }
+  return cp;
+}
+
+// Bytes of the copy's chunk at step k that lie in the buffer (which ends
+// end_rel bytes past the CTA's base): 16, fewer at the buffer's end, 0 when
+// there is nothing to copy (the message has fewer blocks, or the chunk lies
+// past the end).
+HD uint32_t many_copy_bytes(ManyCopy cp, uint32_t k, uint32_t end_rel) {
+  if (k >= cp.nb) return 0u;
+  const uint32_t r = cp.rel + 64u * k;
+  if (r >= end_rel) return 0u;
+  return end_rel - r >= 16u ? 16u : end_rel - r;
+}
+
+// PRMT selector of the big-endian word of bytes r .. r + 3 of {hi:lo}.
+HD uint32_t be_selector(uint32_t r) {
+  return (r << 12) | ((r + 1) << 8) | ((r + 2) << 4) | (r + 3);
+}
+
+HD uint32_t byte_perm(uint32_t lo, uint32_t hi, uint32_t sel) {
+#if defined(__CUDACC__)
+  return __byte_perm(lo, hi, sel);
+#else
+  const uint64_t x = ((uint64_t)hi << 32) | lo;
+  uint32_t out = 0;
+  for (int b = 0; b < 4; b++)
+    out |= (uint32_t)((x >> (8 * ((sel >> (4 * b)) & 7))) & 0xff) << (8 * b);
+  return out;
+#endif
+}
+
+// The 16 big-endian words of the 64 bytes at byte s (0..15) of a staged
+// window of WINDOW_WORDS little-endian words: word j is bytes s + 4j ..
+// s + 4j + 3, one PRMT of window words q + j and q + j + 1 (q = s / 4).
+HD void window_words(const uint32_t* row, uint32_t s, uint32_t W[16]) {
+  const uint32_t q = s >> 2, sel = be_selector(s & 3);
+  UNROLL for (int j = 0; j < 16; j++)
+    W[j] = byte_perm(row[q + j], row[q + j + 1], sel);
+}
+
+// A word of the padded message from the raw word read at its place, where
+// rel = len - (the word's byte position): message bytes, then 0x80, then
+// zeros.
+HD uint32_t tail_word(uint32_t raw, int32_t rel) {
+  if (rel >= 4) return raw;
+  if (rel < 0) return 0u;
+  return (raw & ~(0xffffffffu >> (8 * rel))) | (0x80000000u >> (8 * rel));
+}
+
+// The 16 words of block k (of nb) of the padded message of `len` bytes,
+// from its staged window at byte s. A block wholly inside the message takes
+// the words as they are; only the last one or two are masked, and the last
+// one carries the bit length in words 14 and 15.
+HD void block_words(const uint32_t* row, uint32_t s, uint32_t len, uint32_t k,
+                    uint32_t nb, uint32_t W[16]) {
+  window_words(row, s, W);
+  if (64u * (k + 1) > len) {
+    UNROLL for (int j = 0; j < 16; j++)
+      W[j] = tail_word(W[j], (int32_t)(len - (64u * k + 4u * j)));
+    if (k + 1 == nb) {
+      W[14] = len >> 29;
+      W[15] = len << 3;
+    }
   }
 }
 
-// Node j of tree t of a (8, m, width) level -> st: sha256(left || right),
-// the right child clamped to the last node (the odd-node duplicate).
-HD void sha256_pair_node(uint32_t st[8], const uint32_t* level, int m,
-                         int width, int t, int j) {
-  const int l = 2 * j, r = (2 * j + 1 < width) ? 2 * j + 1 : width - 1;
+// ---------------------------------------------------------------------------
+// sha256_pair: chunk-local reduction of Merkle trees.
+
+#define MERKLE_MAX_DEPTH 5        // a launch reduces at most 32 leaves to one
+#define MERKLE_MAX_THREADS 1024
+#define MERKLE_SMEM_MAX 49152     // bytes of shared memory a CTA may take
+#define MERKLE_LOADS 8            // leaf loads a thread keeps in flight
+
+// The launch geometry is also computed on the host (HOST_HD).
+// Width of level l of a tree of `width` leaves: ceil(width / 2^l).
+HOST_HD int level_width(int width, int l) { return (width + (1 << l) - 1) >> l; }
+
+// Slots a chunk takes in the leaf buffer and in a node buffer: at most
+// 2^depth leaves and 2^(depth - 1) level-1 nodes, fewer in a narrower tree.
+HOST_HD int leaf_stride(int width, int depth) {
+  return width < (1 << depth) ? width : 1 << depth;
+}
+HOST_HD int node_stride(int width, int depth) {
+  const int w1 = level_width(width, 1);
+  return w1 < (1 << (depth - 1)) ? w1 : 1 << (depth - 1);
+}
+
+// Chunks a CTA takes. A level's nodes go to consecutive threads, so its
+// warps are consecutive and spread over the SM's four schedulers only
+// within one CTA: the chunks are shared out so that each SM holds about one
+// CTA, within MERKLE_MAX_THREADS level-1 nodes and MERKLE_SMEM_MAX bytes.
+HOST_HD int merkle_chunks_per_cta(int m, int width, int depth, int sms) {
+  const int total = m * level_width(width, depth);
+  const int ls = leaf_stride(width, depth), ns = node_stride(width, depth);
+  int g = (total + sms - 1) / sms;
+  if (g > MERKLE_MAX_THREADS / ns) g = MERKLE_MAX_THREADS / ns;
+  if (g > MERKLE_SMEM_MAX / (32 * (ls + 2 * ns)))
+    g = MERKLE_SMEM_MAX / (32 * (ls + 2 * ns));
+  return g < 1 ? 1 : g;
+}
+
+// Threads of a CTA: the most level-1 nodes it holds, in whole warps.
+HOST_HD int merkle_threads(int width, int depth, int chunks) {
+  return (chunks * node_stride(width, depth) + 31) / 32 * 32;
+}
+
+// Shared memory of a CTA: the leaves, [8][chunks * leaf_stride] words, and
+// two node buffers of [8][chunks * node_stride] words each.
+HOST_HD int merkle_smem_bytes(int width, int depth, int chunks) {
+  return 32 * chunks * (leaf_stride(width, depth) + 2 * node_stride(width, depth));
+}
+
+// The first node of chunk g at level l in the dense numbering of the
+// level's nodes (tree-major: tree t's node j is t * w_l + j); chunk c of a
+// tree covers its nodes [c << (depth - l), (c + 1) << (depth - l)) of level
+// l, cut at w_l. g may be the chunk count: the level's node count.
+HD int level_start(int g, int nchunks, int width, int depth, int l) {
+  const int t = g / nchunks, c = g - t * nchunks;
+  return t * level_width(width, l) + (c << (depth - l));
+}
+
+// Leaf word x of a CTA's run (x < 8 * nleaves): its index in the level
+// and its slot in the leaf buffer. Row w of the level holds every tree's
+// nodes in order, so the CTA's leaves are one run of each row.
+HD void leaf_word(int x, int nleaves, int leaf_cap, int m, int width, int l0,
+                  size_t* src, int* dst) {
+  const int w = x / nleaves, j = x - w * nleaves;
+  *src = (size_t)w * m * width + l0 + j;
+  *dst = w * leaf_cap + j;
+}
+
+// Node f (dense numbering, level l >= 1) of the CTA whose first chunk is g0
+// and whose leaves start at dense leaf l0: its slot in the level's node
+// buffer, and its children's slots in the level below's buffer (the leaf
+// buffer when l == 1). The right child is clamped to the level's last node
+// (crypto/merkle.py's duplicate of the odd node); both children lie in the
+// node's own chunk.
+HD void merkle_node(int f, int l, int width, int depth, int nchunks, int g0,
+                    int l0, int* slot, int* left, int* right) {
+  const int wl = level_width(width, l), wp = level_width(width, l - 1);
+  const int t = f / wl, j = f - t * wl;
+  const int c = j >> (depth - l), g = t * nchunks + c - g0;
+  const int ns = node_stride(width, depth);
+  const int jl = 2 * j, jr = 2 * j + 1 < wp ? 2 * j + 1 : wp - 1;
+  *slot = g * ns + j - (c << (depth - l));
+  if (l == 1) {
+    *left = t * width + jl - l0;
+    *right = t * width + jr - l0;
+  } else {
+    const int base = g * ns - (c << (depth - l + 1));
+    *left = base + jl;
+    *right = base + jr;
+  }
+}
+
+// sha256(left || right) of two 8-word nodes at slots of a [8][cap] buffer.
+HD void merkle_pair(uint32_t st[8], const uint32_t* buf, int cap, int left,
+                    int right) {
   uint32_t W[16];
   UNROLL for (int w = 0; w < 8; w++) {
-    const size_t row = ((size_t)w * m + t) * width;
-    W[w] = level[row + l];
-    W[8 + w] = level[row + r];
+    W[w] = buf[w * cap + left];
+    W[8 + w] = buf[w * cap + right];
   }
   const uint32_t h0[8] = SHA256_H0;
   UNROLL for (int i = 0; i < 8; i++) st[i] = h0[i];
@@ -177,74 +366,281 @@ HD void sha256_pair_node(uint32_t st[8], const uint32_t* level, int m,
 
 #if defined(__CUDACC__)
 
-#define THREADS 128
-
-__global__ void __launch_bounds__(THREADS)
-sha256_many_kernel(const uint8_t* __restrict__ data,
-                   const int64_t* __restrict__ offsets,
-                   uint32_t* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t lo = offsets[i];
-  uint32_t st[8];
-  sha256_message(st, data + lo, offsets[i + 1] - lo);
-  UNROLL for (int j = 0; j < 8; j++) out[(size_t)j * n + i] = st[j];
+HD void cp_async16(uint32_t dst, uint64_t src, uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(THREADS)
+HD void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+HD void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__global__ void __launch_bounds__(MANY_THREADS)
+sha256_many_kernel(const uint8_t* __restrict__ data,
+                   const int64_t* __restrict__ offsets,
+                   uint32_t* __restrict__ out, int n, int64_t data_len) {
+  __shared__ __align__(16) uint32_t ring[MANY_STAGES][MANY_THREADS][WINDOW_WORDS];
+  const int tid = threadIdx.x, first = blockIdx.x * MANY_THREADS;
+  const int i = first + tid;
+  const uint64_t base = (uint64_t)data;
+  const uint64_t cta_base = many_cta_base(base, offsets, first);
+  const uint32_t end_rel = (uint32_t)(base + (uint64_t)data_len - cta_base);
+
+  uint32_t len = 0, nb = 0, s = 0;
+  if (i < n) {
+    const int64_t lo = offsets[i];
+    len = (uint32_t)(offsets[i + 1] - lo);
+    nb = nblocks_of(len);
+    s = (uint32_t)((base + (uint64_t)lo) & 15);
+  }
+  ManyCopy cps[WINDOW_CHUNKS];
+  UNROLL for (int u = 0; u < WINDOW_CHUNKS; u++)
+    cps[u] = many_copy(offsets, n, first, base, cta_base, tid + u * MANY_THREADS);
+
+  const uint32_t ring_addr = (uint32_t)__cvta_generic_to_shared(&ring[0][0][0]);
+  auto issue = [&](uint32_t k) {
+    const uint32_t stage = ring_addr + (k % MANY_STAGES) * STAGE_BYTES;
+    UNROLL for (int u = 0; u < WINDOW_CHUNKS; u++) {
+      const uint32_t bytes = many_copy_bytes(cps[u], k, end_rel);
+      if (bytes)
+        cp_async16(stage + 16u * (tid + u * MANY_THREADS),
+                   cta_base + cps[u].rel + 64u * k, bytes);
+    }
+    cp_async_commit();
+  };
+
+  UNROLL for (int k = 0; k < MANY_STAGES - 1; k++) issue(k);
+  uint32_t st[8] = SHA256_H0;
+  for (uint32_t k = 0;; k++) {
+    cp_async_wait<MANY_STAGES - 2>();          // block k has landed ...
+    if (!__syncthreads_or(k < nb)) break;     // ... for every thread
+    issue(k + MANY_STAGES - 1);               // into the stage read at k - 1
+    if (k < nb) {
+      uint32_t W[16];
+      block_words(ring[k % MANY_STAGES][tid], s, len, k, nb, W);
+      sha256_compress(st, W);
+    }
+  }
+  cp_async_wait<0>();
+  if (i < n) {
+    UNROLL for (int j = 0; j < 8; j++) out[(size_t)j * n + i] = st[j];
+  }
+}
+
+__global__ void __launch_bounds__(MERKLE_MAX_THREADS)
 sha256_pair_kernel(const uint32_t* __restrict__ level,
-                   uint32_t* __restrict__ out, int m, int width) {
-  const int wout = (width + 1) / 2;
-  const int nodes = m * wout;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nodes) return;
-  uint32_t st[8];
-  sha256_pair_node(st, level, m, width, i / wout, i % wout);
-  UNROLL for (int j = 0; j < 8; j++) out[(size_t)j * nodes + i] = st[j];
+                   uint32_t* __restrict__ out, int m, int width, int depth,
+                   int chunks) {
+  extern __shared__ uint32_t smem[];
+  const int nchunks = level_width(width, depth), total = m * nchunks;
+  const int g0 = blockIdx.x * chunks;
+  const int g1 = g0 + chunks < total ? g0 + chunks : total;
+  const int leaf_cap = chunks * leaf_stride(width, depth);
+  const int node_cap = chunks * node_stride(width, depth);
+
+  // The leaves, MERKLE_LOADS words a thread in flight at a time (a store
+  // waits on its load; a loop of one load a turn would wait on device
+  // memory once a word).
+  const int l0 = level_start(g0, nchunks, width, depth, 0);
+  const int nleaves = level_start(g1, nchunks, width, depth, 0) - l0;
+  const int stride = blockDim.x;
+  for (int x0 = threadIdx.x; x0 < 8 * nleaves; x0 += MERKLE_LOADS * stride) {
+    uint32_t v[MERKLE_LOADS];
+    int dst[MERKLE_LOADS];
+    UNROLL for (int u = 0; u < MERKLE_LOADS; u++) {
+      if (x0 + u * stride < 8 * nleaves) {
+        size_t src;
+        leaf_word(x0 + u * stride, nleaves, leaf_cap, m, width, l0, &src,
+                  &dst[u]);
+        v[u] = level[src];
+      }
+    }
+    UNROLL for (int u = 0; u < MERKLE_LOADS; u++)
+      if (x0 + u * stride < 8 * nleaves) smem[dst[u]] = v[u];
+  }
+  __syncthreads();
+  for (int l = 1; l <= depth; l++) {
+    // Level l reads the leaves (l == 1) or node buffer (l - 1) & 1 and
+    // writes node buffer l & 1.
+    const int f0 = level_start(g0, nchunks, width, depth, l);
+    const int count = level_start(g1, nchunks, width, depth, l) - f0;
+    const uint32_t* src =
+        l == 1 ? smem : smem + 8 * (leaf_cap + ((l - 1) & 1) * node_cap);
+    uint32_t* dst = smem + 8 * (leaf_cap + (l & 1) * node_cap);
+    const int src_cap = l == 1 ? leaf_cap : node_cap;
+    for (int x = threadIdx.x; x < count; x += blockDim.x) {
+      int slot, left, right;
+      merkle_node(f0 + x, l, width, depth, nchunks, g0, l0, &slot, &left,
+                  &right);
+      uint32_t st[8];
+      merkle_pair(st, src, src_cap, left, right);
+      if (l == depth) {  // node f of the last level is output node f
+        UNROLL for (int w = 0; w < 8; w++) out[(size_t)w * total + f0 + x] = st[w];
+      } else {
+        UNROLL for (int w = 0; w < 8; w++) dst[w * node_cap + slot] = st[w];
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // Launch on `stream`; return cudaGetLastError() (0 = launched).
 extern "C" int sha256_many_launch(const void* data, const void* offsets,
-                                  void* out, int n, void* stream) {
+                                  void* out, int n, int64_t data_len,
+                                  void* stream) {
   if (n > 0) {
-    sha256_many_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+    sha256_many_kernel<<<(n + MANY_THREADS - 1) / MANY_THREADS, MANY_THREADS, 0,
                          (cudaStream_t)stream>>>(
-        (const uint8_t*)data, (const int64_t*)offsets, (uint32_t*)out, n);
+        (const uint8_t*)data, (const int64_t*)offsets, (uint32_t*)out, n,
+        data_len);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int sha256_pair_launch(const void* level, void* out, int m,
-                                  int width, void* stream) {
-  const int nodes = m * ((width + 1) / 2);
-  if (nodes > 0) {
-    sha256_pair_kernel<<<(nodes + THREADS - 1) / THREADS, THREADS, 0,
+// `sms`: the card's SM count, over which the CTAs are shared out.
+extern "C" int merkle_reduce_launch(const void* level, void* out, int m,
+                                    int width, int depth, int sms,
+                                    void* stream) {
+  const int total = m * level_width(width, depth);
+  if (total > 0) {
+    const int chunks = merkle_chunks_per_cta(m, width, depth, sms);
+    sha256_pair_kernel<<<(total + chunks - 1) / chunks,
+                         merkle_threads(width, depth, chunks),
+                         merkle_smem_bytes(width, depth, chunks),
                          (cudaStream_t)stream>>>(
-        (const uint32_t*)level, (uint32_t*)out, m, width);
+        (const uint32_t*)level, (uint32_t*)out, m, width, depth, chunks);
   }
   return (int)cudaGetLastError();
 }
 
-#else  // host build: the same arithmetic, for the CPU tests
+// Resident CTAs per SM and threads per CTA of each kernel (for a reduce of
+// `width`-leaf trees at `depth`, also the chunks a CTA takes).
+extern "C" int sha256_many_occupancy(int* blocks, int* threads) {
+  *threads = MANY_THREADS;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, sha256_many_kernel, MANY_THREADS, 0);
+}
+
+extern "C" int merkle_reduce_occupancy(int m, int width, int depth, int sms,
+                                       int* blocks, int* threads, int* chunks) {
+  *chunks = merkle_chunks_per_cta(m, width, depth, sms);
+  *threads = merkle_threads(width, depth, *chunks);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, sha256_pair_kernel, *threads,
+      merkle_smem_bytes(width, depth, *chunks));
+}
+
+#else  // host build: the kernels' schedules run CTA by CTA, for the CPU tests
+
+// cp.async's effect: `bytes` bytes from src, zeros for the rest of the 16.
+// Bytes before the buffer (the kernel reads them from the aligned storage
+// and never uses them) are written as zeros here.
+static void host_copy16(uint8_t* dst, uint64_t src, uint32_t bytes,
+                        uint64_t base) {
+  for (uint32_t b = 0; b < 16; b++)
+    dst[b] = (b < bytes && src + b >= base) ? *(const uint8_t*)(uintptr_t)(src + b)
+                                            : 0;
+}
 
 extern "C" int sha256_many_host(const uint8_t* data, const int64_t* offsets,
-                                uint32_t* out, int n) {
-  for (int i = 0; i < n; i++) {
-    uint32_t st[8];
-    sha256_message(st, data + offsets[i], offsets[i + 1] - offsets[i]);
-    for (int j = 0; j < 8; j++) out[(size_t)j * n + i] = st[j];
+                                uint32_t* out, int n, int64_t data_len) {
+  static uint32_t ring[MANY_STAGES][MANY_THREADS][WINDOW_WORDS];
+  const uint64_t base = (uint64_t)(uintptr_t)data;
+  for (int first = 0; first < n; first += MANY_THREADS) {
+    const uint64_t cta_base = many_cta_base(base, offsets, first);
+    const uint32_t end_rel = (uint32_t)(base + (uint64_t)data_len - cta_base);
+    uint32_t len[MANY_THREADS], nb[MANY_THREADS], s[MANY_THREADS];
+    uint32_t st[MANY_THREADS][8];
+    ManyCopy cps[MANY_THREADS][WINDOW_CHUNKS];
+    memset(ring, 0, sizeof ring);
+    for (int tid = 0; tid < MANY_THREADS; tid++) {
+      const int i = first + tid;
+      len[tid] = nb[tid] = s[tid] = 0;
+      if (i < n) {
+        len[tid] = (uint32_t)(offsets[i + 1] - offsets[i]);
+        nb[tid] = nblocks_of(len[tid]);
+        s[tid] = (uint32_t)((base + (uint64_t)offsets[i]) & 15);
+      }
+      const uint32_t h0[8] = SHA256_H0;
+      for (int j = 0; j < 8; j++) st[tid][j] = h0[j];
+      for (int u = 0; u < WINDOW_CHUNKS; u++)
+        cps[tid][u] = many_copy(offsets, n, first, base, cta_base,
+                                tid + u * MANY_THREADS);
+    }
+    auto issue = [&](uint32_t k) {
+      uint8_t* stage = (uint8_t*)ring[k % MANY_STAGES];
+      for (int tid = 0; tid < MANY_THREADS; tid++)
+        for (int u = 0; u < WINDOW_CHUNKS; u++) {
+          const uint32_t bytes = many_copy_bytes(cps[tid][u], k, end_rel);
+          if (bytes)
+            host_copy16(stage + 16 * (tid + u * MANY_THREADS),
+                        cta_base + cps[tid][u].rel + 64ull * k, bytes, base);
+        }
+    };
+    for (uint32_t k = 0; k < MANY_STAGES - 1; k++) issue(k);
+    for (uint32_t k = 0;; k++) {
+      bool any = false;
+      for (int tid = 0; tid < MANY_THREADS; tid++) any = any || k < nb[tid];
+      if (!any) break;
+      issue(k + MANY_STAGES - 1);
+      for (int tid = 0; tid < MANY_THREADS; tid++) {
+        if (k >= nb[tid]) continue;
+        uint32_t W[16];
+        block_words(ring[k % MANY_STAGES][tid], s[tid], len[tid], k, nb[tid], W);
+        sha256_compress(st[tid], W);
+      }
+    }
+    for (int tid = 0; tid < MANY_THREADS && first + tid < n; tid++)
+      for (int j = 0; j < 8; j++) out[(size_t)j * n + first + tid] = st[tid][j];
   }
   return 0;
 }
 
-extern "C" int sha256_pair_host(const uint32_t* level, uint32_t* out, int m,
-                                int width) {
-  const int wout = (width + 1) / 2, nodes = m * wout;
-  for (int i = 0; i < nodes; i++) {
-    uint32_t st[8];
-    sha256_pair_node(st, level, m, width, i / wout, i % wout);
-    for (int j = 0; j < 8; j++) out[(size_t)j * nodes + i] = st[j];
+extern "C" int merkle_reduce_host(const uint32_t* level, uint32_t* out, int m,
+                                  int width, int depth, int sms) {
+  const int nchunks = level_width(width, depth), total = m * nchunks;
+  const int chunks = merkle_chunks_per_cta(m, width, depth, sms);
+  const int leaf_cap = chunks * leaf_stride(width, depth);
+  const int node_cap = chunks * node_stride(width, depth);
+  uint32_t* smem = (uint32_t*)calloc(merkle_smem_bytes(width, depth, chunks), 1);
+  if (smem == NULL) return 1;
+  for (int g0 = 0; g0 < total; g0 += chunks) {
+    const int g1 = g0 + chunks < total ? g0 + chunks : total;
+    const int l0 = level_start(g0, nchunks, width, depth, 0);
+    const int nleaves = level_start(g1, nchunks, width, depth, 0) - l0;
+    for (int x = 0; x < 8 * nleaves; x++) {
+      size_t src;
+      int dst;
+      leaf_word(x, nleaves, leaf_cap, m, width, l0, &src, &dst);
+      smem[dst] = level[src];
+    }
+    for (int l = 1; l <= depth; l++) {
+      const int f0 = level_start(g0, nchunks, width, depth, l);
+      const int count = level_start(g1, nchunks, width, depth, l) - f0;
+      const uint32_t* src =
+          l == 1 ? smem : smem + 8 * (leaf_cap + ((l - 1) & 1) * node_cap);
+      uint32_t* dst = smem + 8 * (leaf_cap + (l & 1) * node_cap);
+      const int src_cap = l == 1 ? leaf_cap : node_cap;
+      for (int x = 0; x < count; x++) {
+        int slot, left, right;
+        merkle_node(f0 + x, l, width, depth, nchunks, g0, l0, &slot, &left,
+                    &right);
+        uint32_t st[8];
+        merkle_pair(st, src, src_cap, left, right);
+        for (int w = 0; w < 8; w++) {
+          if (l == depth)
+            out[(size_t)w * total + f0 + x] = st[w];
+          else
+            dst[w * node_cap + slot] = st[w];
+        }
+      }
+    }
   }
+  free(smem);
   return 0;
 }
 

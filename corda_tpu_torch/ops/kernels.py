@@ -5,7 +5,7 @@ contiguity, allocates its output with ``torch.empty``, launches on the
 current CUDA stream without synchronising, raises if the launch is
 refused (the C entry point returns ``cudaGetLastError()``), and adds one
 to its launch count. The dispatching functions (ed25519.verify_arrays,
-sha512.challenge_words, sha256.sha256_flat, sha256.merkle_level) send CPU
+sha512.challenge_words, sha256.sha256_flat, sha256.merkle_reduce) send CPU
 tensors to the plain versions instead.
 """
 
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .sha256 import MERKLE_DEPTH
 
 # Launches per kernel, counted where the launch happens and nowhere else.
 LAUNCHES = {"ed25519_verify": 0, "sha512_challenge": 0, "sha256_many": 0,
@@ -25,6 +26,7 @@ LAUNCHES = {"ed25519_verify": 0, "sha512_challenge": 0, "sha256_many": 0,
 _VP = ctypes.c_void_p
 _BTAB: dict[torch.device, torch.Tensor] = {}
 _FNS: dict[str, object] = {}
+_SMS: dict[torch.device, int] = {}
 
 
 def reset_launches() -> None:
@@ -32,14 +34,16 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _fn(src: str, name: str, nptr: int, nint: int = 1):
-    """The C launcher ``name`` from ``csrc/<src>``: nptr pointers, nint ints
-    and the stream, returning an int error code."""
+def _fn(src: str, name: str, nptr: int, nint: int = 1, extra=()):
+    """The C launcher ``name`` from ``csrc/<src>``: nptr pointers, nint ints,
+    the ``extra`` argument types and the stream, returning an int error
+    code."""
     key = f"{src}:{name}"
     fn = _FNS.get(key)
     if fn is None:
         fn = getattr(_build.load(src), name)
-        fn.argtypes = [_VP] * nptr + [ctypes.c_int] * nint + [_VP]
+        fn.argtypes = ([_VP] * nptr + [ctypes.c_int] * nint + list(extra)
+                       + [_VP])
         fn.restype = ctypes.c_int
         _FNS[key] = fn
     return fn
@@ -167,7 +171,8 @@ def sha256_many_cuda(data: torch.Tensor, offsets: torch.Tensor
     and N + 1 int64 offsets on the card) -> (8, N) int32 SHA-256 state words
     (big-endian digest words); the kernel pads each message itself. The
     offsets must rise from 0 to at most len(data), as pack_flat makes them
-    (not checked here: that would synchronise with the card)."""
+    (not checked here: that would synchronise with the card). ``data`` may
+    be a view at any byte offset; one launch takes under 2 GiB of bytes."""
     _check_cuda("sha256_many", data, torch.uint8, 1)
     _check_cuda("sha256_many", offsets, torch.int64, 1)
     if data.device != offsets.device:
@@ -175,34 +180,53 @@ def sha256_many_cuda(data: torch.Tensor, offsets: torch.Tensor
     n = offsets.shape[0] - 1
     if n < 0 or n >= 2**31 // 8:
         raise ValueError(f"sha256_many: {n} messages: expected 0 <= N < 2^28")
+    if data.numel() >= 2**31:
+        raise ValueError(f"sha256_many: {data.numel()} bytes: expected under "
+                         "2^31 in one launch")
     out = torch.empty((8, n), dtype=torch.int32, device=data.device)
-    fn = _fn("sha256.cu", "sha256_many_launch", 3)
+    fn = _fn("sha256.cu", "sha256_many_launch", 3, nint=1,
+             extra=[ctypes.c_int64])
     with torch.cuda.device(data.device):
         err = fn(data.data_ptr(), offsets.data_ptr(), out.data_ptr(), n,
-                 _stream(data.device))
+                 data.numel(), _stream(data.device))
     _raise_if("sha256_many", err)
     LAUNCHES["sha256_many"] += 1
     return out
 
 
-def sha256_pair_cuda(level: torch.Tensor) -> torch.Tensor:
-    """Kernel 4: one Merkle level, (8, m, width) int32 digest words of m
-    trees on the card -> (8, m, ceil(width / 2)): node j is sha256(node 2j
-    || node 2j + 1), the last node paired with itself when width is odd."""
+def _sm_count(device: torch.device) -> int:
+    n = _SMS.get(device)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device] = n
+    return n
+
+
+def merkle_reduce_cuda(level: torch.Tensor, depth: int = MERKLE_DEPTH
+                       ) -> torch.Tensor:
+    """Kernel 4: ``depth`` Merkle levels in one launch. (8, m, width) int32
+    digest words of m trees on the card -> (8, m, ceil(width / 2^depth)):
+    each aligned chunk of 2^depth nodes of a tree reduces to one, node j of
+    a level being sha256(node 2j || node 2j + 1) of the level below, the
+    last node paired with itself when that level's width is odd. Depth 1 is
+    one level (merkle_level); a tree of at most 2^depth leaves reaches its
+    root when depth = ceil(log2(width)) (merkle_roots)."""
     _check_cuda("sha256_pair", level, torch.int32, 3)
     if level.shape[0] != 8 or level.shape[2] < 1:
         raise ValueError(f"sha256_pair: expected (8, m, width >= 1) words, "
                          f"got {tuple(level.shape)}")
+    if not 1 <= depth <= MERKLE_DEPTH:
+        raise ValueError(f"sha256_pair: depth {depth} not in 1..{MERKLE_DEPTH}")
     m, width = level.shape[1], level.shape[2]
-    wout = (width + 1) // 2
     if m * width >= 2**31 // 8:
         raise ValueError(f"sha256_pair: level {m} x {width} too large for "
                          "one launch")
+    wout = -(-width // 2**depth)
     out = torch.empty((8, m, wout), dtype=torch.int32, device=level.device)
-    fn = _fn("sha256.cu", "sha256_pair_launch", 2, nint=2)
+    fn = _fn("sha256.cu", "merkle_reduce_launch", 2, nint=4)
     with torch.cuda.device(level.device):
-        err = fn(level.data_ptr(), out.data_ptr(), m, width,
-                 _stream(level.device))
+        err = fn(level.data_ptr(), out.data_ptr(), m, width, depth,
+                 _sm_count(level.device), _stream(level.device))
     _raise_if("sha256_pair", err)
     LAUNCHES["sha256_pair"] += 1
     return out

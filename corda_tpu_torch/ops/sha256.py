@@ -10,15 +10,17 @@ Two functions reach a hand-written CUDA kernel (csrc/sha256.cu):
 
   sha256_flat   messages as one uint8 byte buffer plus N + 1 int64 offsets
                 -> (8, N) int32 state words. A CUDA tensor launches
-                ``sha256_many_kernel`` (one thread per message, padding
+                ``sha256_many_kernel`` (one thread per message, each block
+                staged through shared memory by coalesced copies, padding
                 done in the kernel, any mix of lengths in one launch); a CPU
                 tensor takes ``sha256_flat_reference``, which pads in torch,
                 buckets by block count and runs ``sha256_blocks_reference``.
-  merkle_level  one level of m trees, (8, m, width) int32 digest words ->
-                (8, m, ceil(width / 2)). A CUDA tensor launches
-                ``sha256_pair_kernel`` (odd node by index clamping); a CPU
-                tensor takes ``sha256_pair_words_reference`` on the gathered
-                children.
+  merkle_reduce ``depth`` levels of m trees, (8, m, width) int32 digest
+                words -> (8, m, ceil(width / 2^depth)). A CUDA tensor
+                launches ``sha256_pair_kernel`` once (each aligned chunk of
+                2^depth nodes reduced in shared memory, the odd node by
+                index clamping); a CPU tensor takes
+                ``merkle_level_reference`` ``depth`` times.
 
 The plain versions mirror ``_compress``: torch's uint32 lacks ``>>``, ``+``
 and ``~``, so words ride int64 lanes masked to 32 bits (as in sha512.py);
@@ -39,7 +41,7 @@ import torch
 __all__ = ["sha256_blocks_reference", "sha256_pair_words_reference",
            "sha256_flat_reference", "sha256_flat", "pack_flat", "digests_of",
            "sha256_many", "sha256_pair_words", "merkle_level",
-           "merkle_level_reference", "merkle_roots",
+           "merkle_reduce", "merkle_level_reference", "merkle_roots",
            "merkle_root", "hash_many_auto", "DEVICE_MIN_HASHES_DEFAULT"]
 
 # hash_many_auto sends a batch of at least this many messages to the card
@@ -48,6 +50,10 @@ __all__ = ["sha256_blocks_reference", "sha256_pair_words_reference",
 # size on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, "hashing
 # crossover"). Change it only through the argument.
 DEVICE_MIN_HASHES_DEFAULT = 512
+
+# Levels one launch of the pair kernel reduces at most (csrc/sha256.cu's
+# MERKLE_MAX_DEPTH): 2^5 = 32 leaves of a tree to one node.
+MERKLE_DEPTH = 5
 
 M32 = 0xFFFFFFFF
 I64 = torch.int64
@@ -230,12 +236,12 @@ def hash_many_auto(msgs: Sequence[bytes], device_min: int | None = None,
 
 def sha256_pair_words(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """Merkle node hash sha256(l || r) for (8, N) int32 digest words on
-    their device: the plain version on the CPU, the pair kernel (one level
-    of N trees of two nodes) on the card."""
+    their device: the plain version on the CPU, the pair kernel (N trees of
+    two nodes reduced one level) on the card."""
     if left.device.type == "cpu":
         return sha256_pair_words_reference(left, right)
     level = torch.stack((left, right), dim=-1).contiguous()  # (8, N, 2)
-    return merkle_level(level)[:, :, 0]
+    return merkle_reduce(level, 1)[:, :, 0]
 
 
 def merkle_level(level: torch.Tensor) -> torch.Tensor:
@@ -243,15 +249,25 @@ def merkle_level(level: torch.Tensor) -> torch.Tensor:
     (8, m, ceil(width / 2)), node j = sha256(node 2j || node 2j + 1), the
     last node hashed with itself when width is odd (crypto/merkle.py's
     duplicate rule)."""
+    return merkle_reduce(level, 1)
+
+
+def merkle_reduce(level: torch.Tensor, depth: int) -> torch.Tensor:
+    """``depth`` reduction steps of m trees at once: (8, m, width) ->
+    (8, m, ceil(width / 2^depth)). On the card one launch of the pair
+    kernel (depth at most MERKLE_DEPTH); on the CPU the plain step
+    ``depth`` times."""
     if level.device.type == "cpu":
-        return merkle_level_reference(level)
+        for _ in range(depth):
+            level = merkle_level_reference(level)
+        return level
     from . import kernels
 
-    return kernels.sha256_pair_cuda(level)
+    return kernels.merkle_reduce_cuda(level, depth)
 
 
 def merkle_level_reference(level: torch.Tensor) -> torch.Tensor:
-    """Plain version of one sha256_pair_kernel launch: the children
+    """Plain version of one level of sha256_pair_kernel: the children
     gathered with the right index clamped to the last node, then
     sha256_pair_words_reference."""
     m, width = level.shape[1], level.shape[2]
@@ -265,7 +281,9 @@ def merkle_roots(leaf_groups: Sequence[Sequence[bytes]],
                  device: str = "cuda") -> list[bytes]:
     """Merkle roots of many trees of 32-byte leaf digests, equal to
     crypto/merkle.py's MerkleTree.build root for each. Trees with the same
-    leaf count reduce together, one merkle_level call a level."""
+    leaf count reduce together: on the card one launch takes them up to
+    MERKLE_DEPTH levels, so trees of up to 32 leaves take one launch
+    and a tree of one leaf none (its root is the leaf)."""
     from . import require_cuda
 
     dev = require_cuda(device)
@@ -284,7 +302,8 @@ def merkle_roots(leaf_groups: Sequence[Sequence[bytes]],
         level = torch.from_numpy(
             np.ascontiguousarray(words).view(np.int32)).to(dev)
         while level.shape[2] > 1:
-            level = merkle_level(level)
+            level = merkle_reduce(level, min(
+                MERKLE_DEPTH, (level.shape[2] - 1).bit_length()))
         for i, d in zip(idxs, digests_of(level[:, :, 0])):
             out[i] = d
     return out  # type: ignore[return-value]

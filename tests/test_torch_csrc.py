@@ -310,18 +310,31 @@ def test_sha256_kernel_constants():
                    text.replace("\\\n", " ")).group(1)
     assert [int(x, 16) for x in re.findall(r"0x([0-9a-f]{8})u", h0)] == \
         ts.H0_256
+    depth = re.search(r"#define MERKLE_MAX_DEPTH (\d+)", text).group(1)
+    assert int(depth) == ts.MERKLE_DEPTH == kernels.MERKLE_DEPTH
 
 
 def _sha256_host(lib, msgs):
     from corda_tpu_torch.ops import sha256 as ts
 
     data, offsets = ts.pack_flat(msgs)
-    out = np.zeros((8, len(msgs)), np.uint32)
+    return _sha256_host_flat(lib, data, offsets)
+
+
+def _sha256_host_flat(lib, data, offsets):
+    """sha256_many_host over a uint8 buffer (any view) and its offsets."""
+    n = len(offsets) - 1
+    out = np.zeros((8, n), np.uint32)
     ptr = ctypes.c_void_p
-    lib.sha256_many_host.argtypes = [ptr, ptr, ptr, ctypes.c_int]
+    lib.sha256_many_host.argtypes = [ptr, ptr, ptr, ctypes.c_int,
+                                     ctypes.c_int64]
     assert lib.sha256_many_host(data.ctypes.data, offsets.ctypes.data,
-                                out.ctypes.data, len(msgs)) == 0
+                                out.ctypes.data, n, data.size) == 0
     return out
+
+
+def _digests(out):
+    return [col.astype(">u4").tobytes() for col in out.T]
 
 
 def test_sha256_many_kernel_arithmetic_matches_hashlib(sha256_lib):
@@ -331,8 +344,7 @@ def test_sha256_many_kernel_arithmetic_matches_hashlib(sha256_lib):
 
     msgs = [rng.bytes(n) for n in list(range(301)) + [1000, 4097]]
     out = _sha256_host(sha256_lib, msgs)
-    assert [col.astype(">u4").tobytes() for col in out.T] == \
-        [hashlib.sha256(m).digest() for m in msgs]
+    assert _digests(out) == [hashlib.sha256(m).digest() for m in msgs]
     some = msgs[::37]
     data, offsets = ts.pack_flat(some)
     plain = ts.sha256_flat_reference(torch.from_numpy(data.copy()),
@@ -341,28 +353,115 @@ def test_sha256_many_kernel_arithmetic_matches_hashlib(sha256_lib):
                           plain.numpy().view(np.uint32))
 
 
-@pytest.mark.parametrize("width", [1, 2, 3, 8, 9])
+# The padding boundaries, the resolve wave's leaf sizes (a command leaf of
+# 166 bytes, output leaves of 317-318) and a many-block message.
+SHA_EDGE_LENGTHS = (0, 1, 55, 56, 63, 64, 65, 119, 120, 166, 317, 318, 1000)
+
+
+@pytest.mark.parametrize("start", range(16))
+def test_sha256_many_windows_at_every_alignment(sha256_lib, start):
+    # The buffer starts at `start` mod 16, so its messages start at every
+    # offset mod 16 over the edge lengths, and the last message ends at the
+    # buffer's last byte: the bytes around the view are 0xff, which only the
+    # masks keep out of the digests.
+    from corda_tpu_torch.ops import sha256 as ts
+
+    msgs = [rng.bytes(n) for n in SHA_EDGE_LENGTHS for _ in range(2)]
+    msgs += [rng.bytes(n) for n in SHA_EDGE_LENGTHS[::-1]]
+    flat, offsets = ts.pack_flat(msgs)
+    room = np.full(flat.size + 64, 0xFF, np.uint8)
+    lead = (start - room.ctypes.data) % 16
+    view = room[lead:lead + flat.size]
+    view[:] = flat
+    assert view.ctypes.data % 16 == start
+    out = _sha256_host_flat(sha256_lib, view, offsets)
+    assert _digests(out) == [hashlib.sha256(m).digest() for m in msgs]
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 129])
+def test_sha256_many_ctas_of_any_count(sha256_lib, n):
+    # N around the CTA's 64 messages: a last CTA with idle threads, whose
+    # copies still cover the other threads' messages.
+    lengths = rng.integers(0, 400, n)
+    msgs = [rng.bytes(int(k)) for k in lengths]
+    out = _sha256_host(sha256_lib, msgs)
+    assert out.shape == (8, n)
+    assert _digests(out) == [hashlib.sha256(m).digest() for m in msgs]
+
+
+def test_sha256_many_long_message_beside_short_ones(sha256_lib):
+    # A 100 KB message (1,563 blocks) in one CTA with short ones: the CTA
+    # steps to its longest message through the 3-stage ring.
+    msgs = [rng.bytes(5), rng.bytes(100_000), rng.bytes(64), b""]
+    out = _sha256_host(sha256_lib, msgs)
+    assert _digests(out) == [hashlib.sha256(m).digest() for m in msgs]
+
+
+def _merkle_host(lib, level, depth, sms=132):
+    """merkle_reduce_host: (8, m, width) uint32 -> (8, m, ceil(width /
+    2^depth))."""
+    m, width = level.shape[1], level.shape[2]
+    out = np.zeros((8, m, -(-width // 2**depth)), np.uint32)
+    ptr = ctypes.c_void_p
+    lib.merkle_reduce_host.argtypes = [ptr, ptr] + [ctypes.c_int] * 4
+    assert lib.merkle_reduce_host(np.ascontiguousarray(level).ctypes.data,
+                                  out.ctypes.data, m, width, depth,
+                                  sms) == 0
+    return out
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 8, 9, 31, 32, 33, 1000])
 def test_sha256_pair_kernel_arithmetic_matches_hashlib(sha256_lib, width):
+    # The reduce at depth 1 is one level: each node against hashlib and the
+    # plain level. Then whole trees as merkle_roots reduces them (depth up
+    # to 5 a launch) against the plain level looped and MerkleTree.build,
+    # with CTAs that cut trees and chunks anywhere (the CTAs shared out over
+    # 1, 7 and 132 SMs).
+    from corda_tpu_torch.crypto.hashes import SecureHash
+    from corda_tpu_torch.crypto.merkle import MerkleTree
     from corda_tpu_torch.ops import sha256 as ts
 
     m = 4
     level = rng.integers(0, 2**32, (8, m, width),
                          dtype=np.uint64).astype(np.uint32)
     wout = (width + 1) // 2
-    out = np.zeros((8, m, wout), np.uint32)
-    ptr = ctypes.c_void_p
-    sha256_lib.sha256_pair_host.argtypes = [ptr, ptr, ctypes.c_int,
-                                            ctypes.c_int]
-    assert sha256_lib.sha256_pair_host(level.ctypes.data, out.ctypes.data,
-                                       m, width) == 0
+    out = _merkle_host(sha256_lib, level, 1)
     for t in range(m):
         for j in range(wout):
             pair = (level[:, t, 2 * j], level[:, t, min(2 * j + 1, width - 1)])
             want = hashlib.sha256(b"".join(x.astype(">u4").tobytes()
                                            for x in pair)).digest()
             assert out[:, t, j].astype(">u4").tobytes() == want
-    plain = ts.merkle_level_reference(torch.from_numpy(level.view(np.int32)))
-    assert np.array_equal(out, plain.numpy().view(np.uint32))
+    plain = torch.from_numpy(level.view(np.int32))
+    assert np.array_equal(out, ts.merkle_level_reference(plain).numpy()
+                          .view(np.uint32))
+    while plain.shape[2] > 1:
+        plain = ts.merkle_level_reference(plain)
+    trees = [MerkleTree.build([SecureHash(level[:, t, j].astype(">u4")
+                                          .tobytes()) for j in range(width)])
+             .hash.bytes for t in range(m)]
+    assert _digests(plain.numpy().view(np.uint32)[:, :, 0]) == trees
+    for sms in (1, 7, 132):
+        roots = level
+        while roots.shape[2] > 1:
+            depth = min(ts.MERKLE_DEPTH, (roots.shape[2] - 1).bit_length())
+            roots = _merkle_host(sha256_lib, roots, depth, sms)
+        assert _digests(roots[:, :, 0]) == trees
+
+
+@pytest.mark.parametrize("width,depth", [(1, 3), (5, 5), (40, 2), (64, 5),
+                                         (100, 4)])
+def test_merkle_reduce_depth_is_that_many_levels(sha256_lib, width, depth):
+    # Any depth on any width is exactly `depth` plain levels, also where it
+    # runs past the root (a width-1 level hashes its node with itself).
+    from corda_tpu_torch.ops import sha256 as ts
+
+    level = rng.integers(0, 2**32, (8, 3, width),
+                         dtype=np.uint64).astype(np.uint32)
+    plain = torch.from_numpy(level.view(np.int32))
+    assert np.array_equal(_merkle_host(sha256_lib, level, depth, 2),
+                          ts.merkle_reduce(plain, depth).numpy()
+                          .view(np.uint32))
 
 
 def test_sha256_wrappers_reject_cpu_tensors():
@@ -370,4 +469,4 @@ def test_sha256_wrappers_reject_cpu_tensors():
         kernels.sha256_many_cuda(torch.zeros(4, dtype=torch.uint8),
                                  torch.zeros(2, dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.sha256_pair_cuda(torch.zeros((8, 2, 3), dtype=torch.int32))
+        kernels.merkle_reduce_cuda(torch.zeros((8, 2, 3), dtype=torch.int32))
