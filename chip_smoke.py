@@ -11,6 +11,9 @@ for example parent, change, change, parent):
 
     python3 chip_smoke.py --sha256-turns PARENT_TREE . . PARENT_TREE
 
+Phase 11's load generator runs as ``python3 chip_smoke.py --qos-load
+ADDRESS JOBS.npz MODE RATE SECONDS SEED`` in a process of its own.
+
 Phases, in order; any failure exits non-zero and prints no result:
   1. probe    -- a CUDA device must exist; print its name and power limit.
   2. build    -- compile the three csrc/ sources with nvcc (in parallel).
@@ -49,29 +52,54 @@ Phases, in order; any failure exits non-zero and prints no result:
                  above the crossover, takes the host tier; the re-probe
                  reopens the
                  gate through the kernels; the next batch is a device batch.
- 10. sha256   -- (a) the SHA-256 kernel (sha256_many) and the Merkle reduce
+ 10. qos flush -- a card server with a 200 ms window holds a bulk request
+                 of 1,024; an interactive request of 64 through the port's
+                 SidecarVerifier, deadline 50 ms out, flushes both well
+                 inside the window (one early flush), answers = oracle.
+ 11. qos mix  -- a load generator in its own process (--qos-load): R from
+                 three closed-loop bulk clients, then an open-loop Poisson
+                 schedule at 0.5 R, 25% interactive (64 sigs, 50 ms
+                 deadline) / 75% bulk (4,096), with lanes and then as plain
+                 OP_VERIFY; per-lane p50 / p99 and the server's wait /
+                 verify split, reported, not gated.
+ 12. metrics  -- OP_METRICS through the port's parser: the sidecar counters
+                 equal the server's stats for the same window.
+ 13. adaptive -- adaptive coalescing seeded at 0 us under the mix: the
+                 coalesce_us trajectory; reset_window restores 0.
+ 14. pump     -- AsyncVerifyService over the port's SidecarVerifier, 32
+                 batches of 64 .. 16,384 (1% tampered) = oracle, all on the
+                 card; the crossover before and after; the span split.
+ 15. signing  -- batch_sign (native sign_many) = oracle on the 256 pairs;
+                 65,536 signatures timed on the host.
+     Every phase from 8 on fails on a wrong answer, a host-tier fallback
+     where a device batch was due, or a path that launched no kernel.
+ 16. sha256   -- (a) the SHA-256 kernel (sha256_many) and the Merkle reduce
                  kernel (sha256_pair) against their plain versions on the
                  card and hashlib, tolerance 0: the padding edges at every
                  start offset mod 16, a ragged N = 1,000, N = 1, a 1 MB
                  message; 1,024 pairs, trees of width 1-40 and 1,000 launch
                  by launch; merkle_roots on those widths against
                  MerkleTree.build.
- 11. resolve  -- (b) a wave of 8,192 SignedTransactions (73,728 leaves; 1%
+ 17. resolve  -- (b) a wave of 8,192 SignedTransactions (73,728 leaves; 1%
                  with a flipped signature byte) built in the port and
                  serialized; prime_ids over fresh deserializations on the
                  host, then on the card (launch counts from 0), must give
                  the build-time ids; merkle_roots on the card must equal
                  them; one TorchVerifier.verify_batch over every signature
                  must reject exactly the tampered transactions; a swapped
-                 id must raise "does not match". Tx/s and leaves/s on the
-                 host and on the card, split into deserialize, component
-                 serialize, hash, tree plus compare and verify; the card
+                 id must raise "does not match". The codec must run its
+                 native core. Tx/s and leaves/s on the host and on the
+                 card, split into deserialize, component serialize, hash,
+                 tree plus compare and verify, the card route with the
+                 native and the pure-Python codec in turns; the card
                  route's hash step split into pack_flat, copy in, kernel,
                  copy out and digests_of; both SHA-256 kernels timed at the
                  wave's shapes (the wave's trees in one reduce launch).
- 12. hashing crossover -- (c) hash_many_auto on the host against the card
+ 18. hashing crossover -- (c) hash_many_auto on the host against the card
                  over the wave's leaf messages, 256 ... 131,072.
- 13. the verify kernel's registers, static SASS counts, resident blocks
+ 19. oversize -- hash_many_auto on 2,049 messages of 1 MiB (more than one
+                 launch takes) = hashlib, in at least two launches.
+ 20. the verify kernel's registers, static SASS counts, resident blocks
      per SM and waves at N_MAIN, and the SHA-256 kernels' SASS counts (no
      byte loads in sha256_many's block loop) and occupancy at the wave;
      the kernels line, then the device line (last).
@@ -82,6 +110,7 @@ decides every expected answer.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -428,10 +457,11 @@ def main_jobs(ref, provider, rng):
     at seeded positions; the expected answer of every distinct tuple comes
     from the oracle."""
     VerifyJob = provider.VerifyJob
-    distinct = []
+    distinct, seeds = [], []
     for _ in range(N_DISTINCT):
         seed = rng.bytes(32)
         txid = rng.bytes(32)
+        seeds.append(seed)
         distinct.append((ref.public_key(seed), txid, ref.sign(seed, txid)))
     tampered = []
     for k in range(64):
@@ -454,7 +484,7 @@ def main_jobs(ref, provider, rng):
     idx[pos] = N_DISTINCT + rng.integers(0, len(tampered), n_tamper)
     jobs = [VerifyJob(*tuples[i]) for i in idx]
     want = np.array([expect[i] for i in idx], bool)
-    return jobs, want, tuples, expect
+    return jobs, want, tuples, expect, seeds
 
 
 def phase_host_tier(ref, provider, native, fast_ed25519):
@@ -498,7 +528,7 @@ def phase_host_tier(ref, provider, native, fast_ed25519):
 
 def phase_main(ref, provider, native, ted, tsha, kernels, dev, rng, card):
     """Phase 5: the main path at full size, then its timings."""
-    jobs, want, tuples, expect = main_jobs(ref, provider, rng)
+    jobs, want, tuples, expect, seeds = main_jobs(ref, provider, rng)
     verifier = provider.TorchVerifier(device="cuda")
     check(native.pack_backend() == "native",
           "the main path would pack with numpy: the native core is missing")
@@ -600,7 +630,7 @@ def phase_main(ref, provider, native, ted, tsha, kernels, dev, rng, card):
         "max_err": {
             "ed25519_verify": int((ok_k.long() - ok_p.long()).abs().max()),
             "sha512_challenge": int((h.long() - h_p.long()).abs().max())},
-    }, jobs, want, tuples, expect
+    }, jobs, want, tuples, expect, seeds
 
 
 # 1 .. 4,096: the sweep that sets DEVICE_MIN_SIGS_DEFAULT (crypto/provider.py)
@@ -824,13 +854,6 @@ def phase_sidecar(provider, sidecar, kernels, jobs, want):
         small_tier, small_got = request_tier(sidecar, server.address,
                                              jobs[:n_small], 77)
         stats = sidecar.fetch_stats(server.address)
-        qos = sidecar.connect(server.address, timeout=30.0)
-        try:
-            sidecar.send_frame(qos, sidecar._VERIFY_REQ_HDR.pack(
-                sidecar.OP_VERIFY_QOS, 99, 0))
-            reply = sidecar.recv_frame(qos)
-        finally:
-            qos.close()
     finally:
         server.stop()
         if tmp:
@@ -840,8 +863,6 @@ def phase_sidecar(provider, sidecar, kernels, jobs, want):
                 pass
     check(not errors, "; ".join(errors))
     check(not any(t.is_alive() for t in threads), "sidecar client hung")
-    check(sidecar._VERIFY_REPLY_HDR.unpack_from(reply)[2] == sidecar.STATUS_ERR,
-          "OP_VERIFY_QOS did not get STATUS_ERR")
     check(np.array_equal(small_got, want[:n_small]),
           f"the {n_small}-signature request != oracle")
     check(small_tier == 0 and stats["host_batches"] >= 1,
@@ -898,6 +919,517 @@ def phase_degrade(provider, kernels, jobs, want):
         f"re-probe reopened the gate through the kernels ({probe_launches}); "
         f"the next batch ran on the card (= oracle)")
     return {"n": n, "probe_launches": probe_launches}
+
+
+# --- the verify plane's service layer: QoS lanes, metrics, adaptive
+# coalescing, the verify pump, batch signing -----------------------------
+
+# The reference README's SLO sweep mix (README.md, "QoS lanes and the p99
+# SLO"): 25% interactive, 75% bulk by request count.
+QOS_INTERACTIVE_SHARE = 0.25
+QOS_INTERACTIVE_SIGS = 64
+QOS_BULK_SIGS = 4096
+QOS_DEADLINE_MS = 50
+QOS_CLOSED_CLIENTS = 3
+QOS_CLOSED_S = 2.0
+# Each open-loop mode of the mix runs long enough for a few hundred
+# interactive requests (about 8 a second at 0.5 R); a p99 is reported only
+# over P99_MIN_N requests or more, since under that it is the maximum.
+QOS_MIX_S = 45.0
+P99_MIN_N = 100
+QOS_ADAPT_S = 3.0       # the adaptive phase prints a trajectory, no tail
+QOS_WORKERS = 32        # the open-loop generator's connections
+QOS_SERVER = {"coalesce_us": 20_000, "max_sigs": 16_384, "qos_guard_us": 2000}
+PUMP_BATCHES = 32
+SIGN_BATCH = N_MAIN
+
+
+def write_jobs(jobs, want, path: str) -> None:
+    """The main path's jobs and oracle answers as columns, for the load
+    generator's process."""
+    np.savez(path, pk=np.frombuffer(b"".join(j.pubkey for j in jobs),
+                                    np.uint8).reshape(-1, 32),
+             msg=np.frombuffer(b"".join(j.message for j in jobs),
+                               np.uint8).reshape(-1, 32),
+             sig=np.frombuffer(b"".join(j.sig for j in jobs),
+                               np.uint8).reshape(-1, 64),
+             want=want)
+
+
+def percentiles_ms(seconds) -> dict:
+    """n, p50, max and, over P99_MIN_N samples or more, p99 (else None)."""
+    if not seconds:
+        return {"n": 0, "p50_ms": None, "p99_ms": None, "max_ms": None}
+    ms = np.asarray(seconds) * 1e3
+    return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": (float(np.percentile(ms, 99)) if len(ms) >= P99_MIN_N
+                       else None),
+            "max_ms": float(ms.max())}
+
+
+def ms_or_na(x) -> str:
+    return "n/a" if x is None else f"{x:.2f}"
+
+
+def qos_load(address: str, jobs_path: str, mode: str, rate: float,
+             duration: float, seed: int) -> int:
+    """The sidecar's load generator, run in a process of its own (so its
+    Python does not share the server's interpreter): clients built on the
+    port's SidecarVerifier, every answer held to the oracle's. Modes:
+      closed -- QOS_CLOSED_CLIENTS clients send QOS_BULK_SIGS-signature
+                requests back to back for ``duration`` s (the rate R);
+      lanes / plain -- an open-loop Poisson schedule from ``seed`` at
+                ``rate`` signatures/s for ``duration`` s, QOS_INTERACTIVE_
+                SHARE of the requests interactive (QOS_INTERACTIVE_SIGS
+                signatures, a QOS_DEADLINE_MS deadline), the rest bulk;
+                "lanes" sends OP_VERIFY_QOS, "plain" sends every request as
+                OP_VERIFY. QOS_WORKERS connections take the requests as
+                they come due.
+    Prints one line ``QOS_LOAD {json}``."""
+    import queue as queue_mod
+
+    from corda_tpu_torch.crypto import provider, sidecar
+    from corda_tpu_torch.node.verify_client import SidecarVerifier
+
+    d = np.load(jobs_path)
+    jobs = [provider.VerifyJob(a.tobytes(), b.tobytes(), c.tobytes())
+            for a, b, c in zip(d["pk"], d["msg"], d["sig"])]
+    want = d["want"]
+    rng = np.random.default_rng(seed)
+    records, errors = [], []
+    lock = threading.Lock()
+
+    def run(client, lane, off, size, t_sched):
+        if mode == "lanes":
+            client.qos_hint = (
+                (sidecar.LANE_CODE_INTERACTIVE,
+                 time.time_ns() + QOS_DEADLINE_MS * 1_000_000)
+                if lane == "interactive" else (sidecar.LANE_CODE_BULK, 0))
+        t_send = time.perf_counter()
+        got = client.verify_batch(jobs[off:off + size])
+        t_reply = time.perf_counter()
+        with lock:
+            records.append((lane, t_sched, t_send, t_reply, size))
+            if not np.array_equal(got, want[off:off + size]):
+                errors.append(f"{lane} request at {off}: "
+                              f"{int((got != want[off:off + size]).sum())} "
+                              "lanes wrong")
+
+    def new_client():
+        return SidecarVerifier(address, device_min_sigs=16,
+                               deadline_ms=120_000)
+
+    clients = []
+    t0 = time.perf_counter()
+    if mode == "closed":
+        def closed(c, own_rng):
+            while time.perf_counter() - t0 < duration:
+                off = int(own_rng.integers(0, len(jobs) - QOS_BULK_SIGS))
+                run(c, "bulk", off, QOS_BULK_SIGS, time.perf_counter())
+        threads = []
+        for i in range(QOS_CLOSED_CLIENTS):
+            clients.append(new_client())
+            threads.append(threading.Thread(target=closed, args=(
+                clients[-1], np.random.default_rng(seed + 100 + i))))
+    else:
+        mean_sigs = (QOS_INTERACTIVE_SHARE * QOS_INTERACTIVE_SIGS
+                     + (1 - QOS_INTERACTIVE_SHARE) * QOS_BULK_SIGS)
+        gaps = rng.exponential(mean_sigs / rate, int(duration * rate
+                                                     / mean_sigs * 2) + 16)
+        times = np.cumsum(gaps)
+        times = times[times < duration]
+        lanes = np.where(rng.random(len(times)) < QOS_INTERACTIVE_SHARE,
+                         "interactive", "bulk")
+        sizes = np.where(lanes == "interactive", QOS_INTERACTIVE_SIGS,
+                         QOS_BULK_SIGS)
+        offs = rng.integers(0, len(jobs) - QOS_BULK_SIGS, len(times))
+        due: queue_mod.SimpleQueue = queue_mod.SimpleQueue()
+
+        def worker(c):
+            while (item := due.get()) is not None:
+                run(c, *item)
+        threads = []
+        for _ in range(QOS_WORKERS):
+            clients.append(new_client())
+            threads.append(threading.Thread(target=worker,
+                                            args=(clients[-1],)))
+    for t in threads:
+        t.start()
+    if mode != "closed":
+        t0 = time.perf_counter()
+        for t_at, lane, size, off in zip(times, lanes, sizes, offs):
+            pause = t0 + t_at - time.perf_counter()
+            if pause > 0:
+                time.sleep(pause)
+            due.put((str(lane), int(off), int(size), t0 + t_at))
+        for _ in threads:
+            due.put(None)
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    for c in clients:
+        c.close()
+    out = {"mode": mode, "offered_sigs_s": rate, "wall_s": wall,
+           "sigs": int(sum(r[4] for r in records)),
+           "requests": len(records), "errors": errors[:5],
+           "n_errors": len(errors),
+           "fallbacks": sum(c.fallbacks for c in clients),
+           "host_batches": sum(c.host_batches for c in clients),
+           "hung": sum(t.is_alive() for t in threads), "lanes": {}}
+    out["achieved_sigs_s"] = out["sigs"] / wall
+    for lane in ("interactive", "bulk"):
+        rows = [r for r in records if r[0] == lane]
+        out["lanes"][lane] = {
+            **percentiles_ms([r[3] - r[2] for r in rows]),
+            "due_to_reply_p99_ms": percentiles_ms(
+                [r[3] - r[1] for r in rows])["p99_ms"]}
+    print("QOS_LOAD " + json.dumps(out), flush=True)
+    return 0
+
+
+def run_qos_load(address, jobs_path, mode, rate, duration, seed) -> dict:
+    """qos_load in its own process -> its result; fails the run on a wrong
+    answer, a host-tier fallback or a hung client."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--qos-load", address,
+         jobs_path, mode, repr(float(rate)), repr(float(duration)),
+         str(seed)], capture_output=True, text=True, timeout=600)
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("QOS_LOAD ")]
+    check(proc.returncode == 0 and len(line) == 1,
+          f"the {mode} load generator failed (rc {proc.returncode}):\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    res = json.loads(line[0].split(" ", 1)[1])
+    check(res["n_errors"] == 0, f"{mode} load: wrong answers {res['errors']}")
+    check(res["fallbacks"] == 0 and res["host_batches"] == 0
+          and res["hung"] == 0,
+          f"{mode} load: {res['fallbacks']} fallbacks, "
+          f"{res['host_batches']} host batches, {res['hung']} hung clients")
+    return res
+
+
+STAT_DELTAS = ("requests", "batches", "sigs", "cross_request_batches",
+               "errors", "device_batches", "host_batches", "wait_s_total",
+               "pack_s_total", "verify_s_total", "qos_early_flushes",
+               "qos_interactive_requests", "qos_bulk_requests")
+
+
+def stats_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in STAT_DELTAS}
+
+
+class card_server:
+    """A port SidecarServer on the card at a fresh socket, stopped (and
+    its socket directory removed) on exit."""
+
+    def __init__(self, sidecar, **kw):
+        self.sidecar, self.kw = sidecar, kw
+
+    def __enter__(self):
+        address, self.tmp = sidecar_address()
+        self.server = self.sidecar.SidecarServer(address, device="cuda",
+                                                 **self.kw).start()
+        return self.server
+
+    def __exit__(self, *exc):
+        self.server.stop()
+        if self.tmp:
+            try:
+                os.rmdir(self.tmp)
+            except OSError:
+                pass
+
+
+def verify_launches(kernels) -> dict:
+    return {k: kernels.LAUNCHES[k] for k in VERIFY_KERNELS}
+
+
+def phase_qos_deadline(sidecar, verify_client, kernels, jobs, want, card):
+    """A bulk request of 1,024 signatures opens a 200 ms coalescing window
+    on a card server; an interactive request of 64 through the port's
+    SidecarVerifier, deadline 50 ms out, must flush both well inside the
+    window (one early flush), both answers = oracle, on the card."""
+    bulk, inter = slice(0, 1024), slice(4096, 4096 + 64)
+    with card_server(sidecar, coalesce_us=200_000, max_sigs=65_536) as srv:
+        kernels.reset_launches()
+        sock = sidecar.connect(srv.address, timeout=60.0)
+        client = verify_client.SidecarVerifier(srv.address,
+                                               device_min_sigs=16,
+                                               deadline_ms=60_000)
+        try:
+            sidecar.send_frame(sock, sidecar.encode_verify_request_qos(
+                1, jobs[bulk], sidecar.LANE_CODE_BULK, 0))
+            t_bulk = time.perf_counter()
+            while srv.stats()["requests"] < 1:
+                check(time.perf_counter() - t_bulk < 30,
+                      "the bulk request never reached the server")
+                time.sleep(0.001)
+            client.qos_hint = (sidecar.LANE_CODE_INTERACTIVE,
+                               time.time_ns() + QOS_DEADLINE_MS * 1_000_000)
+            t0 = time.perf_counter()
+            got = client.verify_batch(jobs[inter])
+            latency = time.perf_counter() - t0
+            reply = sidecar.recv_frame(sock)
+            bulk_latency = time.perf_counter() - t_bulk
+        finally:
+            sock.close()
+            client.close()
+        stats = srv.stats()
+        launches = verify_launches(kernels)
+    _op, rid, status, tier, _w, _v = sidecar._VERIFY_REPLY_HDR.unpack_from(
+        reply)
+    bulk_got = np.frombuffer(reply, np.uint8,
+                             offset=sidecar._VERIFY_REPLY_HDR.size)
+    check(np.array_equal(got, want[inter]), "interactive answers != oracle")
+    check((rid, status, tier) == (1, sidecar.STATUS_OK, 1)
+          and np.array_equal(bulk_got.astype(bool), want[bulk]),
+          f"bulk reply: id {rid} status {status} tier {tier} or answers "
+          "!= oracle")
+    check(client.fallbacks == 0 and client.last_tier == "device",
+          f"the interactive request fell back ({client.fallbacks}) or ran "
+          f"on the {client.last_tier} tier")
+    check(stats["qos_early_flushes"] == 1 and stats["batches"] == 1,
+          f"expected one early flush of one batch: {stats}")
+    check(latency < 0.75 * 0.2,
+          f"the interactive reply took {latency * 1e3:.1f} ms of the 200 ms "
+          "window")
+    check(min(launches.values()) > 0, f"no kernel launched: {launches}")
+    log(f"{card} | qos deadline flush: interactive 64 sigs answered in "
+        f"{latency * 1e3:.2f} ms (deadline {QOS_DEADLINE_MS} ms, window "
+        f"200 ms), bulk 1,024 in {bulk_latency * 1e3:.2f} ms, one batch, "
+        f"qos_early_flushes {stats['qos_early_flushes']}; launches {launches}")
+    return {"interactive_ms": latency * 1e3, "bulk_ms": bulk_latency * 1e3,
+            "stats": stats, "launches": launches}
+
+
+def phase_qos_mix(sidecar, kernels, jobs_path, card):
+    """The QoS mix on one card server (QOS_SERVER): R from three
+    closed-loop bulk clients, then the open-loop 25/75 schedule at 0.5 R
+    with lanes and then as plain OP_VERIFY (the same arrivals). Per-lane
+    latency percentiles, reported and not gated; every answer = oracle."""
+    with card_server(sidecar, **QOS_SERVER) as srv:
+        s0 = srv.stats()
+        closed = run_qos_load(srv.address, jobs_path, "closed", 0,
+                              QOS_CLOSED_S, SEED + 5)
+        closed["server"] = stats_delta(srv.stats(), s0)
+        rate_r = closed["achieved_sigs_s"]
+        runs = {}
+        kernels.reset_launches()
+        for mode in ("lanes", "plain"):
+            before = srv.stats()
+            res = run_qos_load(srv.address, jobs_path, mode, 0.5 * rate_r,
+                               QOS_MIX_S, SEED + 6)
+            res["server"] = stats_delta(srv.stats(), before)
+            runs[mode] = res
+        launches = verify_launches(kernels)
+    check(min(launches.values()) > 0, f"no kernel launched: {launches}")
+    for mode, res in runs.items():
+        sv = res["server"]
+        check(sv["errors"] == 0 and sv["host_batches"] == 0
+              and sv["device_batches"] == sv["batches"] > 0,
+              f"{mode}: server batches off the card: {sv}")
+        lanes = res["lanes"]
+        log(f"{card} | qos mix {mode}: offered {res['offered_sigs_s']:.0f} "
+            f"sigs/s (0.5 R, R = {rate_r:.0f}), achieved "
+            f"{res['achieved_sigs_s']:.0f}; {res['requests']} requests; "
+            + "; ".join(f"{lane} n={v['n']} p50 {v['p50_ms']:.2f} ms p99 "
+                        f"{ms_or_na(v['p99_ms'])} ms max {v['max_ms']:.2f} ms"
+                        f" (due to reply p99 "
+                        f"{ms_or_na(v['due_to_reply_p99_ms'])})"
+                        for lane, v in lanes.items() if v["n"])
+            + f"; server: {sv['batches']} batches ({sv['sigs'] / sv['batches']:.0f}"
+            f" sigs each), wait {sv['wait_s_total'] / sv['requests'] * 1e3:.2f}"
+            f" ms a request, pack {sv['pack_s_total'] / sv['batches'] * 1e3:.2f}"
+            f" and verify {sv['verify_s_total'] / sv['batches'] * 1e3:.2f} ms "
+            f"a batch (wait_s {sv['wait_s_total']:.4f}, verify_s "
+            f"{sv['verify_s_total']:.4f}), early flushes "
+            f"{sv['qos_early_flushes']}")
+    return {"R_sigs_s": rate_r, "closed": closed, "runs": runs,
+            "launches": launches}
+
+
+def phase_metrics(sidecar, verify_client, telemetry, export, kernels, jobs,
+                  want, card):
+    """OP_METRICS: a fresh registry, one client's six sequential requests
+    on a card server, then the Prometheus text through the port's parser:
+    its sidecar counters must equal the server's stats."""
+    telemetry.arm()
+    with card_server(sidecar, coalesce_us=0) as srv:
+        kernels.reset_launches()
+        client = verify_client.SidecarVerifier(srv.address,
+                                               device_min_sigs=16,
+                                               deadline_ms=60_000)
+        try:
+            for k in range(6):
+                sl = slice(k * 2048, (k + 1) * 2048)
+                check(np.array_equal(client.verify_batch(jobs[sl]), want[sl]),
+                      f"metrics phase request {k} != oracle")
+        finally:
+            client.close()
+        text = export.fetch_sidecar_metrics(srv.address)
+        stats = srv.stats()
+        launches = verify_launches(kernels)
+    parsed = export.parse_prometheus(text)
+    got = {k: parsed["counters"][f"sidecar_{k}_total"]
+           for k in ("requests", "batches", "sigs")}
+    check(got == {k: stats[k] for k in got},
+          f"OP_METRICS counters {got} != stats {stats}")
+    check(parsed["histograms"]["sidecar_batch_sigs"]["count"]
+          == stats["batches"], "sidecar_batch_sigs count != batches")
+    check(client.fallbacks == 0 and stats["device_batches"] == 6,
+          f"metrics phase off the card: {stats}")
+    check(min(launches.values()) > 0, f"no kernel launched: {launches}")
+    log(f"{card} | metrics op: {len(text)} bytes of Prometheus text; "
+        f"sidecar counters {got} = stats; launches {launches}")
+    return {"counters": got, "bytes": len(text), "launches": launches}
+
+
+def phase_adaptive(sidecar, kernels, jobs_path, rate_r, card):
+    """Adaptive coalescing on a card server seeded at coalesce_us=0, under
+    the QoS mix's traffic at 0.5 R for QOS_ADAPT_S: the coalesce_us
+    trajectory and the adjustments; reset_window must restore 0."""
+    with card_server(sidecar, adaptive_coalesce=True,
+                     **{**QOS_SERVER, "coalesce_us": 0}) as srv:
+        kernels.reset_launches()
+        out = {}
+        load = threading.Thread(target=lambda: out.update(run_qos_load(
+            srv.address, jobs_path, "lanes", 0.5 * rate_r, QOS_ADAPT_S,
+            SEED + 7)))
+        trajectory = [(0.0, srv.coalesce_us)]
+        load.start()
+        t0 = None  # the trajectory's clock starts at the first request
+        while load.is_alive():
+            if t0 is None and srv.requests:
+                t0 = time.perf_counter()
+            if t0 is not None and srv.coalesce_us != trajectory[-1][1]:
+                trajectory.append((time.perf_counter() - t0, srv.coalesce_us))
+            time.sleep(0.002)
+        load.join()
+        stats = srv.stats()
+        srv.reset_window()
+        reset_to = srv.coalesce_us
+        launches = verify_launches(kernels)
+    check(bool(out), "the adaptive phase's load generator failed")
+    check(reset_to == 0 == stats["coalesce_us_initial"],
+          f"reset_window left coalesce_us at {reset_to}")
+    check(stats["host_batches"] == 0 and stats["errors"] == 0,
+          f"adaptive phase off the card: {stats}")
+    check(min(launches.values()) > 0, f"no kernel launched: {launches}")
+    log(f"{card} | adaptive coalescing from 0 us: adjustments "
+        f"{stats['coalesce_adjustments']}, final {stats['coalesce_us']} us, "
+        f"trajectory (s, us) " + ", ".join(f"({t:.3f}, {c})"
+                                           for t, c in trajectory[:24])
+        + f"; {stats['batches']} batches for {stats['requests']} requests; "
+        f"reset_window -> {reset_to} us; launches {launches}")
+    return {"trajectory": trajectory, "stats": stats, "load": out,
+            "reset_to": reset_to, "launches": launches}
+
+
+class _Member:
+    """A batch member's context, as the node's flows carry one."""
+
+    def __init__(self, trace_id: bytes):
+        self.trace_id = trace_id
+
+
+def phase_pump(sidecar, verify_client, async_verify, trace, kernels, jobs,
+               want, card):
+    """The verify pump: AsyncVerifyService(SidecarVerifier(device_min_sigs
+    =16), depth=2) over PUMP_BATCHES batches from 64 to 16,384 signatures
+    (1% tampered, from the main path's jobs) against a card server; every
+    mask = oracle, every batch on the device tier; AdaptiveCrossover's
+    crossover before and after; the queue-wait / verify split from its
+    spans."""
+    sizes = np.geomspace(64, 16384, PUMP_BATCHES).round().astype(int)
+    rng = np.random.default_rng(SEED + 8)
+    offs = rng.integers(0, len(jobs) - 16384, PUMP_BATCHES)
+    rec = trace.arm("chip_smoke")
+    with card_server(sidecar, coalesce_us=2000, max_sigs=16_384) as srv:
+        kernels.reset_launches()
+        client = verify_client.SidecarVerifier(srv.address,
+                                               device_min_sigs=16,
+                                               deadline_ms=120_000)
+        svc = async_verify.AsyncVerifyService(client, depth=2)
+        before = svc.adaptive.effective_min_sigs
+        s0 = srv.stats()
+        done, k = [], 0
+        t0 = time.perf_counter()
+        try:
+            while len(done) < PUMP_BATCHES:
+                while k < PUMP_BATCHES and svc.can_submit():
+                    sl = slice(int(offs[k]), int(offs[k]) + int(sizes[k]))
+                    svc.submit(jobs[sl], context=[_Member(bytes([k]) * 8)])
+                    k += 1
+                done += svc.drain()
+                check(time.perf_counter() - t0 < 300, "the pump stalled")
+                time.sleep(0.0005)
+            wall = time.perf_counter() - t0
+        finally:
+            check(svc.close(), "the pump's feeder did not stop")
+            client.close()
+            trace.disarm()
+        stats = svc.stats()
+        server = stats_delta(srv.stats(), s0)
+        launches = verify_launches(kernels)
+    # The client counts a device batch for any answered round trip; the
+    # server's stats say whether its verifier ran them on the card.
+    check(server["errors"] == 0 and server["host_batches"] == 0
+          and server["device_batches"] == server["batches"] > 0,
+          f"pump: server batches off the card: {server}")
+    for h in done:
+        idx = int(h.context[0].trace_id[0])
+        sl = slice(int(offs[idx]), int(offs[idx]) + int(sizes[idx]))
+        check(h.error is None and np.array_equal(h.ok, want[sl]),
+              f"pump batch {idx} ({sizes[idx]} sigs) != oracle: {h.error}")
+        check(h.tier == "device", f"pump batch {idx} ran on the host tier")
+    check(client.fallbacks == 0, f"{client.fallbacks} fallbacks in the pump")
+    check(min(launches.values()) > 0, f"no kernel launched: {launches}")
+    spans = {}
+    for s in rec.snapshot():
+        spans[s["name"]] = spans.get(s["name"], 0.0) + s["t_end"] - s["t_start"]
+    spans = {k: v * 1e3 for k, v in spans.items()}
+    after = svc.adaptive.effective_min_sigs
+    log(f"{card} | verify pump: {PUMP_BATCHES} batches of {sizes[0]}.."
+        f"{sizes[-1]} sigs ({int(sizes.sum())} in all) = oracle in "
+        f"{wall * 1e3:.1f} ms ({sizes.sum() / wall:.0f} sigs/s); "
+        f"effective_min_sigs {before} -> {after}; span ms " + ", ".join(
+            f"{k} {v:.2f}" for k, v in spans.items())
+        + f"; pump queue_wait_s {stats['queue_wait_s']}, verify_wall_s "
+        f"{stats['verify_wall_s']}; server {server['batches']} batches, all "
+        f"on the card; launches {launches}")
+    return {"sizes": sizes.tolist(), "wall_ms": wall * 1e3,
+            "effective_min_sigs": [before, after], "span_ms": spans,
+            "stats": stats, "server": server, "launches": launches}
+
+
+def phase_batch_sign(batch_sign, fast_ed25519, seeds, tuples, card):
+    """Batch signing on the host: the main path's 256 distinct pairs through
+    batch_sign.sign_batch (the native sign_many), byte-equal to the oracle
+    and fast_ed25519; then 65,536 signatures timed against fast_ed25519
+    one by one on 4,096."""
+    check(batch_sign._native() is not None,
+          "batch signing would not use the native sign_many")
+    distinct = tuples[:N_DISTINCT]
+    txids = [t[1] for t in distinct]
+    got = batch_sign.sign_batch(seeds, txids)
+    check(got == [t[2] for t in distinct], "sign_batch != the oracle's "
+                                           "signatures")
+    check(got == [fast_ed25519.sign(s, m) for s, m in zip(seeds, txids)],
+          "sign_batch != fast_ed25519")
+    reps = SIGN_BATCH // N_DISTINCT
+    big_seeds, big_msgs = seeds * reps, txids * reps
+    batch_ms = host_ms(lambda: batch_sign.sign_batch(big_seeds, big_msgs),
+                       reps=3)
+    one_ms = host_ms(lambda: [fast_ed25519.sign(s, m) for s, m in
+                              zip(big_seeds[:4096], big_msgs[:4096])],
+                     reps=3) / 4096
+    log(f"{card} | batch signing (host, native sign_many): 256 pairs = "
+        f"oracle; {SIGN_BATCH} sigs in {batch_ms:.1f} ms "
+        f"({SIGN_BATCH / batch_ms * 1e3:.0f} sigs/s) against fast_ed25519 "
+        f"{one_ms * 1e3:.2f} us a signature one by one "
+        f"({1e3 / one_ms:.0f} sigs/s)")
+    return {"batch_ms": batch_ms, "sigs": SIGN_BATCH,
+            "fast_ed25519_ms_per_sig": one_ms}
 
 
 # --- the resolve path: SHA-256 kernels, the transaction wave, crossover -----
@@ -967,7 +1499,7 @@ def aligned_messages(rng):
 
 
 def phase_sha256_kernels(tsha256, kernels, dev, rng):
-    """Phase 10 (a): both SHA-256 kernels against their plain versions on
+    """Phase 16 (a): both SHA-256 kernels against their plain versions on
     the card and against hashlib, tolerance 0 (digests are bits).
     sha256_many: the edge lengths at every start offset mod 16, in a buffer
     that starts at 0 and at 3 mod 16 and ends at its last message's last
@@ -1100,6 +1632,19 @@ def tx_accepts(ok, spans) -> list[bool]:
     return [bool(ok[lo:hi].all()) for lo, hi in spans]
 
 
+@contextlib.contextmanager
+def python_codec(codec, on: bool):
+    """Inside, serialize and deserialize take the codec's pure-Python path
+    when ``on`` (the loaded native core set aside, then restored)."""
+    saved = codec._ccodec
+    if on:
+        codec._ccodec = None
+    try:
+        yield
+    finally:
+        codec._ccodec = saved
+
+
 def resolve_split(provider, tsha256, blobs, ids, want, device_min,
                   verifier) -> dict:
     """One resolve pass over fresh deserializations, prime_ids' steps timed
@@ -1136,7 +1681,7 @@ def resolve_split(provider, tsha256, blobs, ids, want, device_min,
 
 
 def phase_resolve(provider, tsha256, kernels, dev, rng, card):
-    """Phase 11 (b): the resolve wave at full size through the entry points
+    """Phase 17 (b): the resolve wave at full size through the entry points
     (prime_ids, merkle_roots, TorchVerifier.verify_batch), on the host and
     on the card; the tampered id; the time split; kernel times at the
     wave's shapes."""
@@ -1206,29 +1751,46 @@ def phase_resolve(provider, tsha256, kernels, dev, rng, card):
     log("tampered id: prime_ids on the card raised the 'does not match' "
         "ValueError")
 
-    # The time split over fresh copies, in turns (card, host, host, card),
-    # with the earlier waves freed so each pass finds the same heap.
+    # The time split over fresh copies, in turns, with the earlier waves
+    # freed so each pass finds the same heap: the card route with the
+    # native codec and with the pure-Python one (card, card_python, host,
+    # host, card_python, card), the host route with the native codec.
+    from corda_tpu_torch.serialization import codec
     from corda_tpu_torch.transactions import signed
 
+    check(codec.codec_backend() == "native",
+          "the codec's native core did not build on this host")
     flat, _ = signed.component_blobs([s.tx for s in batch])
     packed = card_v._pack(jobs)
     del batch, host_batch, small
-    split = {"card": [], "host": []}
-    for where in ("card", "host", "host", "card"):
+    split = {"card": [], "card_python": [], "host": []}
+    for where in ("card", "card_python", "host", "host", "card_python",
+                  "card"):
         gc.collect()
-        split[where].append(resolve_split(
-            provider, tsha256, blobs, ids, want,
-            0 if where == "card" else NEVER,
-            card_v if where == "card" else provider.CpuVerifier()))
-    check(all(sp["backend"] == "device" for sp in split["card"])
+        with python_codec(codec, where == "card_python"):
+            split[where].append(resolve_split(
+                provider, tsha256, blobs, ids, want,
+                NEVER if where == "host" else 0,
+                provider.CpuVerifier() if where == "host" else card_v))
+    check(all(sp["backend"] == "device"
+              for sp in split["card"] + split["card_python"])
           and all(sp["backend"] == "host" for sp in split["host"]),
           "split routes differ")
-    for where in ("host", "card"):
+    for where in ("host", "card_python", "card"):
         for sp in split[where]:
-            log(f"{card} | resolve {where}: {sp['tx_s']:.0f} tx/s, "
-                f"{sp['leaves_s']:.0f} leaves/s; ms: " + ", ".join(
-                    f"{k} {v:.1f}" for k, v in sp["ms"].items())
+            log(f"{card} | resolve {where} ("
+                f"{'python' if where == 'card_python' else 'native'} codec):"
+                f" {sp['tx_s']:.0f} tx/s, {sp['leaves_s']:.0f} leaves/s; ms: "
+                + ", ".join(f"{k} {v:.1f}" for k, v in sp["ms"].items())
                 + f" (total {sp['total_ms']:.1f})")
+    codec_ms = {where: [sp["ms"]["deserialize"]
+                        + sp["ms"]["component_serialize"]
+                        for sp in split[where]]
+                for where in ("card", "card_python")}
+    log(f"{card} | codec steps (deserialize + component serialize) on the "
+        f"card route: native {codec_ms['card']} ms against pure Python "
+        f"{codec_ms['card_python']} ms; the card route with the native codec"
+        f" {[round(sp['tx_s']) for sp in split['card']]} tx/s")
 
     # The card route's hash step split into its parts, host clock, each
     # part synchronised, medians of 5: pack_flat, the copy in, the kernel,
@@ -1337,7 +1899,7 @@ def hash_step_split(tsha256, kernels, flat, dev) -> dict:
 
 
 def phase_hash_crossover(tsha256, flat, card):
-    """Phase 12 (c): hash_many_auto on the host against the card over the
+    """Phase 18 (c): hash_many_auto on the host against the card over the
     wave's leaf messages (tiled), 256 ... 131,072, host-clock medians of
     5; the smallest size from which the card wins at every larger size,
     beside DEVICE_MIN_HASHES_DEFAULT."""
@@ -1367,6 +1929,47 @@ def phase_hash_crossover(tsha256, flat, card):
         f"(DEVICE_MIN_HASHES_DEFAULT {tsha256.DEVICE_MIN_HASHES_DEFAULT})")
     return {"rows": rows, "crossover": crossover,
             "default": tsha256.DEVICE_MIN_HASHES_DEFAULT}
+
+
+# 2,049 messages of 1 MiB: 2,049 MiB, over one sha256_many launch's limit.
+SHA_OVERSIZE = (2049, 1 << 20)
+
+
+def phase_sha256_oversize(tsha256, kernels, card):
+    """hash_many_auto on 2,049 MiB of messages, more than one launch takes:
+    the dispatcher splits it into launches under the kernel's limits; every
+    digest = hashlib of its own message. Each message carries its index in
+    its first 8 bytes, so a launch that reads the wrong span of the buffer
+    or rebases its offsets wrong gives wrong digests. The buffers are freed
+    before the next phase."""
+    n, size = SHA_OVERSIZE
+    stamp = bytearray(size)
+    msgs = []
+    for i in range(n):
+        stamp[:8] = i.to_bytes(8, "little")
+        msgs.append(bytes(stamp))
+    want = [hashlib.sha256(m).digest() for m in msgs]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    digests, backend = tsha256.hash_many_auto(msgs, device_min=1,
+                                              device="cuda")
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.LAUNCHES["sha256_many"]
+    peak = torch.cuda.max_memory_allocated()
+    ok = backend == "device" and digests == want and len(set(want)) == n
+    del msgs, digests, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(ok, "hash_many_auto on the oversize input != hashlib")
+    check(launches >= 2, f"the oversize input took {launches} launch(es)")
+    log(f"{card} | oversize SHA-256: {n} x {size} B = {n * size} B through "
+        f"hash_many_auto on the card, each message distinct, = hashlib, in "
+        f"{launches} sha256_many "
+        f"launches, {wall_ms:.1f} ms host clock, device peak {peak} B")
+    return {"messages": n, "bytes": n * size, "launches": launches,
+            "wall_ms": wall_ms, "device_peak_bytes": peak}
 
 
 def sass_instructions(nvcc: str, lib: str, kernel: str) -> list[tuple]:
@@ -1646,8 +2249,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     from corda_tpu_torch import native
-    from corda_tpu_torch.crypto import fast_ed25519, provider, sidecar
+    from corda_tpu_torch.crypto import (async_verify, batch_sign,
+                                        fast_ed25519, provider, sidecar)
     from corda_tpu_torch.crypto import ref_ed25519 as ref
+    from corda_tpu_torch.node import verify_client
+    from corda_tpu_torch.obs import export, telemetry, trace
     from corda_tpu_torch.ops import _build, kernels
     from corda_tpu_torch.ops import ed25519 as ted
     from corda_tpu_torch.ops import sha256 as tsha256
@@ -1709,7 +2315,7 @@ def main() -> int:
     max_err = phase_kernels(ref, ted, tsha, kernels, dev, rng, zero_ok)
 
     # 5. main path at full size
-    main_res, jobs, want, tuples, expect = phase_main(
+    main_res, jobs, want, tuples, expect, seeds = phase_main(
         ref, provider, native, ted, tsha, kernels, dev, rng, card)
     for k, v in main_res["max_err"].items():
         max_err[k] = max(max_err[k], v)
@@ -1724,15 +2330,38 @@ def main() -> int:
                                          want)
     degrade_res = phase_degrade(provider, kernels, jobs, want)
 
-    # 10. SHA-256 kernels vs plain, 11. the resolve wave, 12. its crossover
+    # 10-15. the service layer: QoS deadline flush, QoS mix, metrics op,
+    # adaptive coalescing (the load generator in its own process), the
+    # verify pump, batch signing
+    qos_flush = phase_qos_deadline(sidecar, verify_client, kernels, jobs,
+                                   want, card)
+    jobs_dir = tempfile.mkdtemp(prefix="cts_jobs")
+    jobs_path = os.path.join(jobs_dir, "jobs.npz")
+    try:
+        write_jobs(jobs, want, jobs_path)
+        qos_mix = phase_qos_mix(sidecar, kernels, jobs_path, card)
+        metrics_res = phase_metrics(sidecar, verify_client, telemetry, export,
+                                    kernels, jobs, want, card)
+        adaptive_res = phase_adaptive(sidecar, kernels, jobs_path,
+                                      qos_mix["R_sigs_s"], card)
+    finally:
+        os.remove(jobs_path)
+        os.rmdir(jobs_dir)
+    pump_res = phase_pump(sidecar, verify_client, async_verify, trace,
+                          kernels, jobs, want, card)
+    sign_res = phase_batch_sign(batch_sign, fast_ed25519, seeds, tuples, card)
+
+    # 16. SHA-256 kernels vs plain, 17. the resolve wave, 18. its crossover,
+    # 19. an input larger than one launch
     max_err.update(phase_sha256_kernels(tsha256, kernels, dev, rng))
     resolve_res, leaf_msgs = phase_resolve(provider, tsha256, kernels, dev,
                                            rng, card)
     for k in ("sha256_many", "sha256_pair"):
         max_err[k] = max(max_err[k], resolve_res[k]["max_err"])
     hash_cross = phase_hash_crossover(tsha256, leaf_msgs, card)
+    oversize_res = phase_sha256_oversize(tsha256, kernels, card)
 
-    # 13. kernels line
+    # 20. kernels line
     bound1, by1 = bound_ms(N_MAIN * VERIFY_BYTES,
                            main_res["verify_least_int_ops"])
     bound2, by2 = bound_ms(N_MAIN * CHALLENGE_BYTES,
@@ -1798,8 +2427,11 @@ def main() -> int:
               "host_tier": host_res, "main": main_res,
               "crossover": cross_res, "stream": stream_res,
               "sidecar_stats": stats, "sidecar_launches": side_launches,
-              "degrade": degrade_res, "resolve": resolve_res,
-              "hash_crossover": hash_cross,
+              "degrade": degrade_res, "qos_deadline_flush": qos_flush,
+              "qos_mix": qos_mix, "metrics_op": metrics_res,
+              "adaptive_coalesce": adaptive_res, "verify_pump": pump_res,
+              "batch_sign": sign_res, "resolve": resolve_res,
+              "hash_crossover": hash_cross, "sha256_oversize": oversize_res,
               "ptxas": {s: ptxas_summary(_build, s) for s in _build.SOURCES},
               "sass_sha512_challenge": sass2,
               "challenge_least_int_ops": CHALLENGE_INT_OPS,
@@ -1826,4 +2458,8 @@ if __name__ == "__main__":
         raise SystemExit(sha256_turns(sys.argv[2:]))
     if sys.argv[1:2] == ["--sha256-time"]:
         raise SystemExit(sha256_time(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--qos-load"]:
+        address, jobs_file, load_mode, rate, duration, seed = sys.argv[2:8]
+        raise SystemExit(qos_load(address, jobs_file, load_mode, float(rate),
+                                  float(duration), int(seed)))
     raise SystemExit(main())

@@ -1,25 +1,29 @@
 """Device-owning verification sidecar: cross-process batch coalescing.
 
 Counterpart of ``corda_tpu/crypto/sidecar.py``, speaking the same wire
-protocol byte for byte, so the existing notary cluster's clients
-(``corda_tpu.node.verify_client.SidecarVerifier``) talk to this server
-unchanged. One server per host owns the card; every node process sends
-its micro-batches here, and the server merges requests from many
-processes into kernel-sized batches.
+protocol byte for byte, so either package's client
+(``corda_tpu_torch.node.verify_client.SidecarVerifier`` or the JAX
+package's) talks to this server unchanged. One server per host owns the
+card; every node process sends its micro-batches here, and the server
+merges requests from many processes into kernel-sized batches.
 
 Server structure:
   reader threads   -- one per connection; decode framed requests into a
                       shared pending queue.
   scheduler thread -- holds the queue open from the OLDEST pending request
                       for up to coalesce_us, flushing early when pending
-                      sigs reach max_sigs; whole requests only. It then runs
-                      the host half of the device dispatch (pack_device),
-                      which returns None for a batch the verifier routes to
-                      its host tier (under device_min_sigs, gate closed,
-                      mixed schemes, nothing well-formed).
+                      sigs reach max_sigs, or qos_guard_us before the
+                      earliest interactive deadline (OP_VERIFY_QOS); whole
+                      requests only, interactive and unlabelled ones first
+                      when bulk requests wait too. It then runs the host
+                      half of the device dispatch (pack_device), which
+                      returns None for a batch the verifier routes to its
+                      host tier (under device_min_sigs, gate closed, mixed
+                      schemes, nothing well-formed).
   executor thread  -- runs verify_packed on the card, or verify_batch for a
-                      batch that was not packed, and splits the answers per
-                      request.
+                      batch that was not packed, splits the answers per
+                      request, and (adaptive_coalesce) retunes coalesce_us
+                      from the observed batch fill.
   depth-N buffering: a BoundedSemaphore(depth) between scheduler and
                       executor lets batch N+1 pack while batch N runs.
 
@@ -28,13 +32,14 @@ host:port):
   frame    := u32(len) payload
   request  := u8(op) u32(req_id) body
   OP_VERIFY  body:  u32(n)  pubkeys n*32  sigs n*64  u32 msg_len[n]  msgs
+  OP_VERIFY_QOS body: u32(n) u8(lane) u64(deadline_ns, epoch; 0 = none)
+                    then the OP_VERIFY body's columns; OP_VERIFY reply
   OP_VERIFY  reply: u8(op) u32(req_id) u8(status) u8(tier)
                     f32(wait_s) f32(verify_s)  u8 ok[n]
                     (tier: 1 = the batch ran on the device, 0 = host tier)
   OP_STATS   reply: u8(op) u32(req_id) u8(status)  json(stats) utf-8
+  OP_METRICS reply: u8(op) u32(req_id) u8(status)  prometheus text utf-8
   OP_PING    reply: u8(op) u32(req_id) u8(status)
-OP_VERIFY_QOS (QoS lanes) and OP_METRICS (Prometheus text) are not served
-in this package yet: each gets a STATUS_ERR reply, never silence.
 
 The sidecar holds no durable state; a client that gets an error or no
 answer verifies on its own host tier.
@@ -55,16 +60,25 @@ from typing import Sequence
 
 import numpy as np
 
+from ..obs import telemetry as _tm
 from .provider import TorchVerifier, VerifyJob
 
 OP_VERIFY = 1
 OP_STATS = 2
 OP_PING = 3
+# OP_VERIFY with a QoS prefix (lane code and the batch's earliest
+# interactive deadline in epoch ns): the same columnar body and the same
+# OP_VERIFY reply.
 OP_VERIFY_QOS = 4
+# Prometheus text of this process's telemetry registry (obs/export.py).
 OP_METRICS = 5
 
 STATUS_OK = 0
 STATUS_ERR = 1
+
+# Lane codes on the wire, as the JAX package's QoS plane numbers them.
+LANE_CODE_INTERACTIVE = 0
+LANE_CODE_BULK = 1
 
 # One frame bounds one request: 64 MiB covers 65536 jobs with ~900-byte
 # messages.
@@ -73,6 +87,8 @@ MAX_FRAME = 64 * 1024 * 1024
 _FRAME_HDR = struct.Struct("<I")
 _REQ_HDR = struct.Struct("<BI")
 _VERIFY_REQ_HDR = struct.Struct("<BII")
+# op, req_id, n, lane code, deadline_ns (epoch; 0 = no deadline).
+_VERIFY_QOS_REQ_HDR = struct.Struct("<BIIBQ")
 _REPLY_HDR = struct.Struct("<BIB")
 _VERIFY_REPLY_HDR = struct.Struct("<BIBBff")
 
@@ -86,6 +102,17 @@ def bucket_for(n: int) -> int:
         if n <= b:
             return b
     return BUCKETS[-1]
+
+
+# Adaptive coalesce_us: every ADAPT_WINDOW executed batches, shrink the
+# window when batches fill to half of max_sigs (it only adds latency) and
+# grow it when they stay under a quarter while requests still coalesce
+# (more company would arrive); between the two, no change.
+ADAPT_WINDOW = 8        # executed batches per decision
+ADAPT_GROW = 1.5
+ADAPT_SHRINK = 0.75
+ADAPT_SEED_US = 200     # first growth step out of coalesce_us=0
+ADAPT_CEILING_US = 20_000
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +184,25 @@ def decode_verify_request(payload: bytes):
     """-> (req_id, [VerifyJob...]); raises on a malformed frame."""
     _op, req_id, n = _VERIFY_REQ_HDR.unpack_from(payload)
     return req_id, _decode_jobs(payload, _VERIFY_REQ_HDR.size, n)
+
+
+def encode_verify_request_qos(req_id: int, jobs: Sequence[VerifyJob],
+                              lane: int, deadline_ns: int) -> bytes:
+    """OP_VERIFY_QOS: the OP_VERIFY body prefixed with the batch's lane and
+    earliest interactive deadline (epoch ns; 0 = none)."""
+    return _VERIFY_QOS_REQ_HDR.pack(
+        OP_VERIFY_QOS, req_id, len(jobs), lane,
+        deadline_ns & 0xFFFFFFFFFFFFFFFF) + _encode_jobs(jobs)
+
+
+def decode_verify_request_qos(payload: bytes):
+    """-> (req_id, [VerifyJob...], lane, deadline_ns); raises on junk."""
+    _op, req_id, n, lane, deadline_ns = \
+        _VERIFY_QOS_REQ_HDR.unpack_from(payload)
+    if lane not in (LANE_CODE_INTERACTIVE, LANE_CODE_BULK):
+        raise ValueError(f"unknown sidecar lane code {lane}")
+    return (req_id, _decode_jobs(payload, _VERIFY_QOS_REQ_HDR.size, n),
+            lane, deadline_ns)
 
 
 def parse_address(address: str):
@@ -261,13 +307,20 @@ class _Client:
 
 
 class _Pending:
-    __slots__ = ("client", "req_id", "jobs", "received_at")
+    __slots__ = ("client", "req_id", "jobs", "received_at", "lane",
+                 "deadline_ns")
 
-    def __init__(self, client: _Client, req_id: int, jobs: list[VerifyJob]):
+    def __init__(self, client: _Client, req_id: int,
+                 jobs: list[VerifyJob], lane: int | None = None,
+                 deadline_ns: int = 0):
         self.client = client
         self.req_id = req_id
         self.jobs = jobs
         self.received_at = time.perf_counter()
+        # The QoS prefix of OP_VERIFY_QOS; None / 0 for a plain OP_VERIFY,
+        # which schedules as before.
+        self.lane = lane
+        self.deadline_ns = deadline_ns
 
 
 _STOP = object()
@@ -277,11 +330,16 @@ class SidecarServer:
     """The per-host verification server; it owns the card through its
     verifier (default ``TorchVerifier(device)``). ``device_min_sigs``, when
     given, is passed to the TorchVerifier the server builds (its size
-    crossover); a caller that brings its own verifier sets it there."""
+    crossover); a caller that brings its own verifier sets it there.
+    ``adaptive_coalesce`` retunes ``coalesce_us`` from the batch fill;
+    ``qos_guard_us`` is how long before the earliest interactive deadline
+    a coalescing batch flushes."""
 
     def __init__(self, address: str, verifier=None, device: str = "cuda",
                  coalesce_us: int = 2000, max_sigs: int = 4096,
-                 depth: int = 2, device_min_sigs: int | None = None):
+                 depth: int = 2, device_min_sigs: int | None = None,
+                 adaptive_coalesce: bool = False,
+                 qos_guard_us: int = 2000):
         self.address = address
         if verifier is None:
             kw = ({} if device_min_sigs is None
@@ -292,6 +350,12 @@ class SidecarServer:
                              "server builds: set it on the verifier passed in")
         self.verifier = verifier
         self.coalesce_us = int(coalesce_us)
+        self.coalesce_us_initial = int(coalesce_us)
+        self.adaptive_coalesce = bool(adaptive_coalesce)
+        self.coalesce_adjustments = 0
+        self._win_batches = 0
+        self._win_requests = 0
+        self._win_sigs = 0
         self.max_sigs = int(max_sigs)
         self.depth = int(depth)
 
@@ -309,12 +373,17 @@ class SidecarServer:
         self.sigs = 0
         self.cross_request_batches = 0
         self.errors = 0
-        self.unsupported_ops = 0
         self.batch_sigs_hist: dict[int, int] = {}
         self.packed_batches = 0
         self.pack_s_total = 0.0
         self.wait_s_total = 0.0
         self.verify_s_total = 0.0
+        # QoS: flush this long before the earliest interactive deadline
+        # (kept in ns), and count how the deadline scheduler behaved.
+        self.qos_guard_ns = int(qos_guard_us) * 1000
+        self.qos_early_flushes = 0
+        self.qos_interactive_requests = 0
+        self.qos_bulk_requests = 0
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -398,18 +467,22 @@ class SidecarServer:
                 op, req_id = _REQ_HDR.unpack_from(payload)
                 if op == OP_VERIFY:
                     _, jobs = decode_verify_request(payload)
-                    with self._lock:
-                        self.requests += 1
-                    with self._cv:
-                        self._pending.append(_Pending(client, req_id, jobs))
-                        self._cv.notify_all()
+                    self._enqueue(_Pending(client, req_id, jobs))
+                elif op == OP_VERIFY_QOS:
+                    _, jobs, lane, deadline_ns = \
+                        decode_verify_request_qos(payload)
+                    self._enqueue(_Pending(client, req_id, jobs, lane=lane,
+                                           deadline_ns=deadline_ns))
                 elif op == OP_STATS:
                     client.reply(_REPLY_HDR.pack(OP_STATS, req_id, STATUS_OK)
                                  + json.dumps(self.stats()).encode())
+                elif op == OP_METRICS:
+                    from ..obs.export import render_prometheus
+
+                    client.reply(_REPLY_HDR.pack(OP_METRICS, req_id, STATUS_OK)
+                                 + render_prometheus().encode())
                 elif op == OP_PING:
                     client.reply(_REPLY_HDR.pack(OP_PING, req_id, STATUS_OK))
-                elif op in (OP_VERIFY_QOS, OP_METRICS):
-                    self._reply_unsupported(client, op, req_id)
                 else:
                     raise ValueError(f"unknown sidecar op {op}")
         except (ConnectionError, OSError, ValueError, struct.error):
@@ -423,30 +496,66 @@ class SidecarServer:
                 if client in self._clients:
                     self._clients.remove(client)
 
-    def _reply_unsupported(self, client: _Client, op: int,
-                           req_id: int) -> None:
-        """STATUS_ERR for an op this server does not serve yet. A QoS
-        verify is answered in the OP_VERIFY reply shape its clients parse,
-        so they see the error (and degrade) instead of waiting out their
-        deadline."""
+    def _enqueue(self, pend: _Pending) -> None:
+        # Counters change under _lock (the lock stats() reads them under),
+        # never under _cv: the two locks are never held together.
         with self._lock:
-            self.unsupported_ops += 1
-        detail = (f"sidecar op {op} is not supported by the "
-                  "corda_tpu_torch server").encode()
-        if op == OP_VERIFY_QOS:
-            head = _VERIFY_REPLY_HDR.pack(OP_VERIFY, req_id, STATUS_ERR, 0,
-                                          0.0, 0.0)
-        else:
-            head = _REPLY_HDR.pack(op, req_id, STATUS_ERR)
-        client.reply(head + detail)
+            self.requests += 1
+            if pend.lane == LANE_CODE_INTERACTIVE:
+                self.qos_interactive_requests += 1
+            elif pend.lane == LANE_CODE_BULK:
+                self.qos_bulk_requests += 1
+        if _tm.ACTIVE is not None:
+            _tm.inc("sidecar_requests_total")
+        with self._cv:
+            self._pending.append(pend)
+            self._cv.notify_all()
 
     # -- coalescing scheduler ----------------------------------------------
 
     def _pending_sigs(self) -> int:
         return sum(len(p.jobs) for p in self._pending)
 
+    def _min_interactive_deadline_ns(self) -> int:
+        """Earliest interactive deadline among pending requests (0 = none).
+        Called under _cv."""
+        dl = 0
+        for p in self._pending:
+            if (p.lane == LANE_CODE_INTERACTIVE and p.deadline_ns > 0
+                    and (dl == 0 or p.deadline_ns < dl)):
+                dl = p.deadline_ns
+        return dl
+
+    def _form_batch(self) -> list[_Pending]:
+        """Take up to max_sigs from pending. With no bulk request waiting
+        this is the FIFO cut; when both classes wait, interactive (and
+        unlabelled) requests pack first, FIFO within each class, so a full
+        batch is cut from the latency-sensitive end and bulk rides the next
+        one. Called under _cv."""
+        if not any(p.lane == LANE_CODE_BULK for p in self._pending):
+            batch: list[_Pending] = []
+            total = 0
+            while self._pending and total < self.max_sigs:
+                p = self._pending.popleft()
+                batch.append(p)
+                total += len(p.jobs)
+            return batch
+        pending = list(self._pending)
+        ordered = ([p for p in pending if p.lane != LANE_CODE_BULK]
+                   + [p for p in pending if p.lane == LANE_CODE_BULK])
+        batch, taken, total = [], set(), 0
+        for p in ordered:
+            if total >= self.max_sigs:
+                break
+            batch.append(p)
+            taken.add(id(p))
+            total += len(p.jobs)
+        self._pending = deque(p for p in pending if id(p) not in taken)
+        return batch
+
     def _scheduler(self) -> None:
         while True:
+            qos_flush = False
             with self._cv:
                 while not self._pending:
                     if self._stop.is_set():
@@ -458,16 +567,26 @@ class SidecarServer:
                             + self.coalesce_us / 1e6)
                 while (self._pending_sigs() < self.max_sigs
                        and not self._stop.is_set()):
-                    remaining = deadline - time.perf_counter()
+                    limit = deadline
+                    dl_ns = self._min_interactive_deadline_ns()
+                    if dl_ns:
+                        # The epoch-ns deadline on the perf_counter clock,
+                        # less the guard, so verify and reply still fit.
+                        qos_limit = (time.perf_counter()
+                                     + (dl_ns - self.qos_guard_ns
+                                        - time.time_ns()) / 1e9)
+                        limit = min(limit, qos_limit)
+                    remaining = limit - time.perf_counter()
                     if remaining <= 0:
+                        # Cut while the coalescing window is still open:
+                        # a deadline flush.
+                        qos_flush = deadline - time.perf_counter() > 0
                         break
                     self._cv.wait(remaining)
-                batch: list[_Pending] = []
-                total = 0
-                while self._pending and total < self.max_sigs:
-                    p = self._pending.popleft()
-                    batch.append(p)
-                    total += len(p.jobs)
+                batch = self._form_batch()
+            if qos_flush:
+                with self._lock:
+                    self.qos_early_flushes += 1
             # At most `depth` batches formed-or-running: backpressure that
             # keeps the scheduler one batch ahead of the executor.
             while not self._slots.acquire(timeout=0.2):
@@ -477,12 +596,14 @@ class SidecarServer:
                 self._slots.release()
                 return
             jobs = [j for p in batch for j in p.jobs]
+            pack_fn = getattr(self.verifier, "pack_device", None)
             t_pack = time.perf_counter()
-            try:
-                packed = self.verifier.pack_device(jobs)
-                err = None
-            except Exception as exc:  # noqa: BLE001 -- becomes an ERR reply
-                packed, err = None, exc
+            packed, err = None, None
+            if pack_fn is not None:
+                try:
+                    packed = pack_fn(jobs)
+                except Exception as exc:  # noqa: BLE001 -- becomes an ERR reply
+                    err = exc
             self._exec_q.put((batch, jobs, packed, err,
                               time.perf_counter() - t_pack))
 
@@ -509,6 +630,10 @@ class SidecarServer:
             # verifier counted a device batch for it.
             tier = 1 if err is None and (getattr(
                 self.verifier, "device_batches", 0) or 0) > before_dev else 0
+            if _tm.ACTIVE is not None:
+                _tm.inc("sidecar_batches_total")
+                _tm.inc("sidecar_sigs_total", len(jobs))
+                _tm.observe("sidecar_batch_sigs", len(jobs))
             with self._lock:
                 self.batches += 1
                 self.sigs += len(jobs)
@@ -523,6 +648,8 @@ class SidecarServer:
                 if packed is not None:
                     self.packed_batches += 1
                     self.pack_s_total += pack_s
+                if self.adaptive_coalesce:
+                    self._adapt_observe(len(batch), len(jobs))
             offset = 0
             for p in batch:
                 n = len(p.jobs)
@@ -531,7 +658,8 @@ class SidecarServer:
                     STATUS_OK if err is None else STATUS_ERR, tier,
                     t0 - p.received_at, verify_s)
                 if err is None:
-                    body = ok[offset:offset + n].astype(np.uint8).tobytes()
+                    body = np.asarray(ok[offset:offset + n],
+                                      bool).astype(np.uint8).tobytes()
                 else:
                     body = repr(err).encode()[:512]
                 offset += n
@@ -540,6 +668,46 @@ class SidecarServer:
                 except OSError:
                     pass  # client died mid-batch: it re-verifies itself
             self._slots.release()
+
+    # -- adaptive coalescing ------------------------------------------------
+
+    def _adapt_observe(self, n_requests: int, n_sigs: int) -> None:
+        """Retune coalesce_us from the observed batch fill; called under
+        self._lock once per executed batch when adaptive_coalesce is on.
+        Every ADAPT_WINDOW batches: a mean fill of at least max_sigs/2
+        shrinks the window (it is only added latency); a mean under
+        max_sigs/4 while several requests share a batch grows it toward
+        ADAPT_CEILING_US (more company would arrive). Only the window's
+        length changes: it still anchors on the oldest pending request
+        and still flushes early at max_sigs."""
+        self._win_batches += 1
+        self._win_requests += n_requests
+        self._win_sigs += n_sigs
+        if self._win_batches < ADAPT_WINDOW:
+            return
+        mean = self._win_sigs / self._win_batches
+        coalescing = self._win_requests > self._win_batches
+        self._win_batches = self._win_requests = self._win_sigs = 0
+        cur = self.coalesce_us
+        if mean >= self.max_sigs / 2:
+            new = int(cur * ADAPT_SHRINK)
+        elif mean < self.max_sigs / 4 and coalescing:
+            new = min(ADAPT_CEILING_US,
+                      max(ADAPT_SEED_US, int(cur * ADAPT_GROW)))
+        else:
+            return
+        if new != cur:
+            self.coalesce_us = new
+            self.coalesce_adjustments += 1
+
+    def reset_window(self) -> None:
+        """Restore the configured coalesce window and zero the adaptation
+        window, so the next measurement's first ADAPT_WINDOW batches are
+        judged on its own traffic. Cumulative stats (batches, sigs,
+        coalesce_adjustments) survive."""
+        with self._lock:
+            self.coalesce_us = self.coalesce_us_initial
+            self._win_batches = self._win_requests = self._win_sigs = 0
 
     # -- stats --------------------------------------------------------------
 
@@ -557,7 +725,6 @@ class SidecarServer:
                 "sigs": self.sigs,
                 "cross_request_batches": self.cross_request_batches,
                 "errors": self.errors,
-                "unsupported_ops": self.unsupported_ops,
                 "batch_sigs_hist": hist,
                 "device_batches": getattr(v, "device_batches", None),
                 "host_batches": getattr(v, "host_batches", None),
@@ -568,10 +735,17 @@ class SidecarServer:
                 # take any N), so no lane is ever padding.
                 "pad_lanes": 0,
                 "coalesce_us": self.coalesce_us,
+                "coalesce_us_initial": self.coalesce_us_initial,
+                "adaptive_coalesce": self.adaptive_coalesce,
+                "coalesce_adjustments": self.coalesce_adjustments,
                 "max_sigs": self.max_sigs,
                 "depth": self.depth,
                 "wait_s_total": round(self.wait_s_total, 6),
                 "verify_s_total": round(self.verify_s_total, 6),
+                "qos_guard_us": self.qos_guard_ns // 1000,
+                "qos_early_flushes": self.qos_early_flushes,
+                "qos_interactive_requests": self.qos_interactive_requests,
+                "qos_bulk_requests": self.qos_bulk_requests,
             }
 
 
@@ -596,11 +770,21 @@ def main(argv: Sequence[str] | None = None) -> int:
                              "coalesced batches under this many sigs take "
                              "the host tier (0 = always the device; default: "
                              "the provider's measured crossover)")
+    parser.add_argument("--adaptive-coalesce", action="store_true",
+                        help="retune coalesce_us from the observed batch "
+                             "fill (grow toward full batches, shrink when "
+                             "batches fill early)")
+    parser.add_argument("--qos-guard-us", type=int, default=2000,
+                        help="flush a coalescing batch this long before "
+                             "the earliest interactive deadline "
+                             "(OP_VERIFY_QOS clients)")
     args = parser.parse_args(argv)
     server = SidecarServer(args.socket, device=args.device,
                            coalesce_us=args.coalesce_us,
                            max_sigs=args.max_sigs, depth=args.depth,
-                           device_min_sigs=args.device_min_sigs)
+                           device_min_sigs=args.device_min_sigs,
+                           adaptive_coalesce=args.adaptive_coalesce,
+                           qos_guard_us=args.qos_guard_us)
     server.start()
     print(f"sidecar up at {server.address}", flush=True)
     try:

@@ -1,13 +1,16 @@
-"""The host tier's native core: a C extension built at first use.
+"""The port's native cores: C extensions built at first use.
 
 Counterpart of ``corda_tpu/native/__init__.py`` for ``_cverify.c`` (batched
-libcrypto verify and the device-hash word packer, GIL released). The
-source compiles with ``gcc`` against the interpreter's ``Python.h`` and the
-installed libcrypto into ``build/corda_tpu_torch/native/<sha256 of the
+libcrypto verify and signing and the device-hash word packer, GIL
+released) and ``_ccodec.c`` (the canonical codec's decode/encode core,
+wired in by serialization/codec.py). Each source compiles with ``gcc``
+against the interpreter's ``Python.h`` (and, for ``_cverify``, the
+installed libcrypto) into ``build/corda_tpu_torch/native/<sha256 of the
 source>/``, through a temp name and ``os.replace``, so processes that
 build at once never load a half-written file and a changed source never
 loads a stale build. A host without a toolchain or libcrypto gets None:
-the numpy packer and the oracle path answer identically, only slower.
+the numpy packer, the oracle path and the pure-Python codec answer
+identically, only slower.
 """
 
 from __future__ import annotations
@@ -113,6 +116,12 @@ def load_cverify():
         _CACHE["_cverify"] = None
         return None
     return _load_native("_cverify", (lib,))
+
+
+def load_ccodec():
+    """The native codec decode/encode core (``_ccodec.c``), or None when
+    it cannot be built here."""
+    return _load_native("_ccodec")
 
 
 def pack_backend() -> str:

@@ -2,8 +2,8 @@
  * GIL released.
  *
  * The port's own copy of corda_tpu/native/_cverify.c (verify_many,
- * pack_words and their thread fan-out; the port imports nothing of
- * corda_tpu). Built at first use by corda_tpu_torch/native/__init__.py.
+ * pack_words, sign_many and their thread fan-out; the port imports nothing
+ * of corda_tpu). Built at first use by corda_tpu_torch/native/__init__.py.
  *
  * verify_many is an ACCEPT-FAST path only: libcrypto enforces S < L, which
  * the oracle (crypto/ref_ed25519.py) does not, so any signature it rejects
@@ -42,6 +42,14 @@ extern int EVP_DigestVerifyInit(
     EVP_PKEY *pkey);
 extern int EVP_DigestVerify(
     EVP_MD_CTX *ctx, const unsigned char *sig, size_t siglen,
+    const unsigned char *tbs, size_t tbslen);
+extern EVP_PKEY *EVP_PKEY_new_raw_private_key(
+    int type, ENGINE *e, const unsigned char *key, size_t keylen);
+extern int EVP_DigestSignInit(
+    EVP_MD_CTX *ctx, EVP_PKEY_CTX **pctx, const EVP_MD *type, ENGINE *e,
+    EVP_PKEY *pkey);
+extern int EVP_DigestSign(
+    EVP_MD_CTX *ctx, unsigned char *sigret, size_t *siglen,
     const unsigned char *tbs, size_t tbslen);
 
 #define EVP_PKEY_ED25519 1087
@@ -360,6 +368,129 @@ done:
     return result;
 }
 
+/* sign_many(seeds, msgs) -> bytes (64 bytes of signature per job).
+ *
+ * The INGEST mirror of verify_many: columnar layout (seeds and msgs are
+ * single contiguous n*32-byte buffers — the batch-sign packer hands the
+ * whole corpus over in two allocations, no per-item object traffic) and
+ * the sign loop runs with the GIL RELEASED, fanned across the same
+ * pthread budget as verify. Ed25519 signing is RFC 8032-deterministic,
+ * so libcrypto's output here is byte-identical to both fast_ed25519.sign
+ * and the ref_ed25519 oracle; there is no accept-set subtlety like
+ * verify's S < L corner. Messages are fixed at 32 bytes because every
+ * message on this path is a WireTransaction Merkle id; anything
+ * variable-length takes the Python fallback. A libcrypto failure on any
+ * job (cannot happen for well-formed 32-byte seeds; belt-and-braces for
+ * allocation failure) raises, and the caller re-signs the batch on the
+ * Python path — a wrong-or-missing signature never leaves this module
+ * silently. */
+typedef struct {
+    const unsigned char *seeds;
+    const unsigned char *msgs;
+    unsigned char *sigs;
+    Py_ssize_t lo, hi;
+    int failed;
+} sign_span_t;
+
+static void *sign_worker(void *arg) {
+    sign_span_t *s = (sign_span_t *)arg;
+    for (Py_ssize_t i = s->lo; i < s->hi; i++) {
+        EVP_PKEY *pkey = EVP_PKEY_new_raw_private_key(
+            EVP_PKEY_ED25519, NULL, s->seeds + 32 * i, 32);
+        if (pkey == NULL) {
+            s->failed = 1;
+            return NULL;
+        }
+        EVP_MD_CTX *ctx = EVP_MD_CTX_new();
+        if (ctx == NULL) {
+            EVP_PKEY_free(pkey);
+            s->failed = 1;
+            return NULL;
+        }
+        size_t siglen = 64;
+        int ok = EVP_DigestSignInit(ctx, NULL, NULL, NULL, pkey) == 1
+                 && EVP_DigestSign(ctx, s->sigs + 64 * i, &siglen,
+                                   s->msgs + 32 * i, 32) == 1
+                 && siglen == 64;
+        EVP_MD_CTX_free(ctx);
+        EVP_PKEY_free(pkey);
+        if (!ok) {
+            s->failed = 1;
+            return NULL;
+        }
+    }
+    return NULL;
+}
+
+static PyObject *sign_many(PyObject *self, PyObject *args) {
+    Py_buffer seeds, msgs;
+    if (!PyArg_ParseTuple(args, "y*y*", &seeds, &msgs))
+        return NULL;
+    PyObject *out = NULL;
+    if (seeds.len % 32 != 0 || msgs.len != seeds.len) {
+        PyErr_SetString(PyExc_ValueError,
+                        "seeds and msgs must be equal-length multiples "
+                        "of 32 bytes (columnar n*32 layout)");
+        goto done;
+    }
+    Py_ssize_t n = seeds.len / 32;
+    out = PyBytes_FromStringAndSize(NULL, n * 64);
+    if (out == NULL)
+        goto done;
+    if (n > 0) {
+        unsigned char *sig_buf = (unsigned char *)PyBytes_AS_STRING(out);
+        const unsigned char *seed_buf = (const unsigned char *)seeds.buf;
+        const unsigned char *msg_buf = (const unsigned char *)msgs.buf;
+        int nthreads = n >= PAR_MIN ? (int)(n / (PAR_MIN / 2)) : 1;
+        if (nthreads > PAR_MAX_THREADS)
+            nthreads = PAR_MAX_THREADS;
+        long cores = sysconf(_SC_NPROCESSORS_ONLN);
+        if (cores > 0 && nthreads > cores)
+            nthreads = (int)cores;
+        sign_span_t spans[PAR_MAX_THREADS];
+        pthread_t tids[PAR_MAX_THREADS];
+        int started = 0, nspans = 0;
+        Py_ssize_t chunk = (n + nthreads - 1) / nthreads;
+        Py_BEGIN_ALLOW_THREADS
+        for (int t = 0; t < nthreads; t++) {
+            Py_ssize_t lo = (Py_ssize_t)t * chunk;
+            Py_ssize_t hi = lo + chunk < n ? lo + chunk : n;
+            if (lo >= hi)
+                break;
+            spans[nspans].seeds = seed_buf;
+            spans[nspans].msgs = msg_buf;
+            spans[nspans].sigs = sig_buf;
+            spans[nspans].lo = lo;
+            spans[nspans].hi = hi;
+            spans[nspans].failed = 0;
+            if (t < nthreads - 1 && hi < n
+                && pthread_create(&tids[started], NULL, sign_worker,
+                                  &spans[nspans]) == 0)
+                started++;
+            else
+                sign_worker(&spans[nspans]);
+            nspans++;
+        }
+        for (int t = 0; t < started; t++)
+            pthread_join(tids[t], NULL);
+        Py_END_ALLOW_THREADS
+        for (int t = 0; t < nspans; t++) {
+            if (spans[t].failed) {
+                Py_DECREF(out);
+                out = NULL;
+                PyErr_SetString(PyExc_ValueError,
+                                "libcrypto Ed25519 sign failed");
+                goto done;
+            }
+        }
+    }
+
+done:
+    PyBuffer_Release(&seeds);
+    PyBuffer_Release(&msgs);
+    return out;
+}
+
 static PyMethodDef methods[] = {
     {"verify_many", verify_many, METH_VARARGS,
      "Batch Ed25519 verify via libcrypto, GIL released; returns one 0/1 "
@@ -368,12 +499,17 @@ static PyMethodDef methods[] = {
      "pack_words(pks, msgs, sigs, bucket) -> (a, r, s, m) raw (8, bucket) "
      "uint32 word arrays for the device-hash verify path; GIL released "
      "during the fill."},
+    {"sign_many", sign_many, METH_VARARGS,
+     "sign_many(seeds, msgs) -> sigs: columnar batch Ed25519 sign via "
+     "libcrypto, GIL released; n*32-byte seed and 32-byte-message "
+     "buffers in, n*64 bytes of deterministic RFC 8032 signatures out."},
     {NULL, NULL, 0, NULL},
 };
 
 static struct PyModuleDef module = {
     PyModuleDef_HEAD_INIT, "_cverify",
-    "Batched libcrypto Ed25519 verification and word packing (GIL-free).",
+    "Batched libcrypto Ed25519 verification, signing and word packing "
+    "(GIL-free).",
     -1, methods,
 };
 

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .sha256 import MERKLE_DEPTH
+from .sha256 import (MERKLE_DEPTH, MERKLE_MAX_NODES, SHA256_MAX_BYTES,
+                     SHA256_MAX_MESSAGES)
 
 # Launches per kernel, counted where the launch happens and nowhere else.
 LAUNCHES = {"ed25519_verify": 0, "sha512_challenge": 0, "sha256_many": 0,
@@ -172,15 +173,17 @@ def sha256_many_cuda(data: torch.Tensor, offsets: torch.Tensor
     (big-endian digest words); the kernel pads each message itself. The
     offsets must rise from 0 to at most len(data), as pack_flat makes them
     (not checked here: that would synchronise with the card). ``data`` may
-    be a view at any byte offset; one launch takes under 2 GiB of bytes."""
+    be a view at any byte offset; one launch takes fewer than
+    SHA256_MAX_BYTES bytes and SHA256_MAX_MESSAGES messages
+    (sha256.sha256_flat splits larger buffers)."""
     _check_cuda("sha256_many", data, torch.uint8, 1)
     _check_cuda("sha256_many", offsets, torch.int64, 1)
     if data.device != offsets.device:
         raise ValueError("sha256_many: tensors on different devices")
     n = offsets.shape[0] - 1
-    if n < 0 or n >= 2**31 // 8:
+    if n < 0 or n >= SHA256_MAX_MESSAGES:
         raise ValueError(f"sha256_many: {n} messages: expected 0 <= N < 2^28")
-    if data.numel() >= 2**31:
+    if data.numel() >= SHA256_MAX_BYTES:
         raise ValueError(f"sha256_many: {data.numel()} bytes: expected under "
                          "2^31 in one launch")
     out = torch.empty((8, n), dtype=torch.int32, device=data.device)
@@ -218,7 +221,7 @@ def merkle_reduce_cuda(level: torch.Tensor, depth: int = MERKLE_DEPTH
     if not 1 <= depth <= MERKLE_DEPTH:
         raise ValueError(f"sha256_pair: depth {depth} not in 1..{MERKLE_DEPTH}")
     m, width = level.shape[1], level.shape[2]
-    if m * width >= 2**31 // 8:
+    if m * width >= MERKLE_MAX_NODES:
         raise ValueError(f"sha256_pair: level {m} x {width} too large for "
                          "one launch")
     wout = -(-width // 2**depth)

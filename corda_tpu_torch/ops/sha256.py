@@ -22,6 +22,12 @@ Two functions reach a hand-written CUDA kernel (csrc/sha256.cu):
                 index clamping); a CPU tensor takes
                 ``merkle_level_reference`` ``depth`` times.
 
+One launch of either kernel takes less than a fixed amount of work (its
+offsets and node indices are 32-bit: SHA256_MAX_BYTES, SHA256_MAX_MESSAGES,
+MERKLE_MAX_NODES); both dispatchers cut larger work into launches under
+those limits (``launch_spans``, ``tree_groups``), so every size the JAX package hashes is
+hashed here too.
+
 The plain versions mirror ``_compress``: torch's uint32 lacks ``>>``, ``+``
 and ``~``, so words ride int64 lanes masked to 32 bits (as in sha512.py);
 at the boundaries a word is an int32 bit pattern. Byte-identical to
@@ -42,7 +48,8 @@ __all__ = ["sha256_blocks_reference", "sha256_pair_words_reference",
            "sha256_flat_reference", "sha256_flat", "pack_flat", "digests_of",
            "sha256_many", "sha256_pair_words", "merkle_level",
            "merkle_reduce", "merkle_level_reference", "merkle_roots",
-           "merkle_root", "hash_many_auto", "DEVICE_MIN_HASHES_DEFAULT"]
+           "merkle_root", "hash_many_auto", "launch_spans", "tree_groups",
+           "DEVICE_MIN_HASHES_DEFAULT"]
 
 # hash_many_auto sends a batch of at least this many messages to the card
 # and a smaller one to hashlib: the size from which chip_smoke.py's sweep
@@ -54,6 +61,14 @@ DEVICE_MIN_HASHES_DEFAULT = 512
 # Levels one launch of the pair kernel reduces at most (csrc/sha256.cu's
 # MERKLE_MAX_DEPTH): 2^5 = 32 leaves of a tree to one node.
 MERKLE_DEPTH = 5
+
+# What one launch takes, each exclusive (kernels.py refuses more; the
+# dispatchers below split): sha256_many's bytes and messages, and the pair
+# kernel's m x width nodes. The kernels index bytes and message words with
+# 32-bit integers.
+SHA256_MAX_BYTES = 2**31
+SHA256_MAX_MESSAGES = 2**28
+MERKLE_MAX_NODES = 2**28
 
 M32 = 0xFFFFFFFF
 I64 = torch.int64
@@ -178,15 +193,59 @@ def sha256_flat_reference(data: torch.Tensor,
     return out
 
 
+def launch_spans(offsets: np.ndarray, max_bytes: int,
+                 max_items: int) -> list[tuple[int, int]]:
+    """Cut N items laid end to end (host N + 1 offsets, item i spanning
+    offsets[i] to offsets[i + 1]) into consecutive [lo, hi) spans, each of
+    fewer than ``max_items`` items and fewer than ``max_bytes`` units, as
+    long as possible. An item of ``max_bytes`` or more gets a span of its
+    own (one launch cannot take it: the kernel's wrapper raises). No items,
+    no spans."""
+    n = len(offsets) - 1
+    spans = []
+    lo = 0
+    while lo < n:
+        # The last index whose offset is under offsets[lo] + max_bytes.
+        hi = int(np.searchsorted(offsets, offsets[lo] + max_bytes,
+                                 side="left")) - 1
+        hi = min(hi, lo + max_items - 1, n)
+        if hi <= lo:
+            hi = lo + 1
+        spans.append((lo, hi))
+        lo = hi
+    return spans
+
+
+def tree_groups(m: int, width: int, max_nodes: int) -> list[tuple[int, int]]:
+    """Cut m trees of ``width`` nodes into consecutive [lo, hi) groups of
+    fewer than ``max_nodes`` nodes each, as long as possible; a tree of
+    ``max_nodes`` nodes or more gets a group of its own."""
+    per = max(1, (max_nodes - 1) // width)
+    return [(lo, min(lo + per, m)) for lo in range(0, m, per)]
+
+
 def sha256_flat(data: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """SHA-256 state words of the messages of a flat buffer, on the
     tensors' device: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors."""
+    CUDA tensors. A buffer of SHA256_MAX_BYTES bytes or SHA256_MAX_MESSAGES
+    messages or more goes in spans (``launch_spans``), each a view of
+    ``data`` with rebased offsets; only then are the offsets read back to
+    the host to plan them."""
     if data.device.type == "cpu":
-        return sha256_flat_reference(data, offsets)
-    from . import kernels
+        launch = sha256_flat_reference
+    else:
+        from . import kernels
 
-    return kernels.sha256_many_cuda(data, offsets)
+        launch = kernels.sha256_many_cuda
+    n = offsets.shape[0] - 1
+    if data.numel() < SHA256_MAX_BYTES and n < SHA256_MAX_MESSAGES:
+        return launch(data, offsets)
+    host = offsets.cpu().numpy()
+    parts = []
+    for lo, hi in launch_spans(host, SHA256_MAX_BYTES, SHA256_MAX_MESSAGES):
+        a, b = int(host[lo]), int(host[hi])
+        parts.append(launch(data[a:b], offsets[lo:hi + 1] - a))
+    return torch.cat(parts, dim=1)
 
 
 def pack_flat(msgs: Sequence[bytes]) -> tuple[np.ndarray, np.ndarray]:
@@ -256,14 +315,23 @@ def merkle_reduce(level: torch.Tensor, depth: int) -> torch.Tensor:
     """``depth`` reduction steps of m trees at once: (8, m, width) ->
     (8, m, ceil(width / 2^depth)). On the card one launch of the pair
     kernel (depth at most MERKLE_DEPTH); on the CPU the plain step
-    ``depth`` times."""
+    ``depth`` times. A level of MERKLE_MAX_NODES nodes or more goes in
+    groups of whole trees (``tree_groups``)."""
     if level.device.type == "cpu":
-        for _ in range(depth):
-            level = merkle_level_reference(level)
-        return level
-    from . import kernels
+        def launch(lv, d):
+            for _ in range(d):
+                lv = merkle_level_reference(lv)
+            return lv
+    else:
+        from . import kernels
 
-    return kernels.merkle_reduce_cuda(level, depth)
+        launch = kernels.merkle_reduce_cuda
+    m, width = level.shape[1], level.shape[2]
+    if m * width < MERKLE_MAX_NODES:
+        return launch(level, depth)
+    return torch.cat([launch(level[:, lo:hi].contiguous(), depth)
+                      for lo, hi in tree_groups(m, width, MERKLE_MAX_NODES)],
+                     dim=1)
 
 
 def merkle_level_reference(level: torch.Tensor) -> torch.Tensor:

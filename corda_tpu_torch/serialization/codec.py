@@ -2,9 +2,11 @@
 
 The port's own copy of ``corda_tpu/serialization/codec.py``: the same wire
 format and the same wire names (the package prefix is stripped from both),
-so the two packages exchange blobs byte for byte. The JAX package's native
-decode core (``corda_tpu/native/_ccodec.c``) is not carried over; this
-pure-Python codec is its semantic authority there too.
+so the two packages exchange blobs byte for byte. ``serialize`` and
+``deserialize`` run through the port's native core
+(``corda_tpu_torch/native/_ccodec.c``, built at first use) where it builds,
+and through this pure-Python codec, its semantic authority, where it does
+not; ``codec_backend()`` says which.
 
 Capability match for the reference's Kryo layer (reference:
 core/src/main/kotlin/net/corda/core/serialization/Kryo.kt:41-507): one format
@@ -381,8 +383,10 @@ def _decode(data: bytes, pos: int, depth: int = 0) -> tuple[Any, int]:
 
 
 def _construct(wire_name: str, values: tuple) -> Any:
-    """Registry lookup + construction for a decoded object: the whitelist
-    and construction semantics live in exactly one place."""
+    """Registry lookup + construction for a decoded object, shared by the
+    pure-Python decoder above and the native decode core (which decodes the
+    wire structure in C and calls back here), so the whitelist and
+    construction semantics live in exactly one place."""
     if wire_name == "__svc_token__":
         from .tokens import current_token_context
 
@@ -456,16 +460,23 @@ class SerializedBytes:
 
 
 def serialize(value: Any) -> SerializedBytes:
+    if _load_native():
+        return SerializedBytes(_ccodec.encode(value))
     out = bytearray()
     _encode(out, value)
     return SerializedBytes(bytes(out))
 
 
 def _object_parts(value: Any):
-    """The object branch's single semantic authority (_encode's tail).
-    Returns bytes to splice verbatim (memo hits, service tokens) OR
-    (wire_name_bytes, fields_tuple, memoize_bool) for the caller to
-    encode."""
+    """The object branch's single semantic authority, shared by the pure
+    encoder (_encode's tail) and the native encoder's callback. Returns
+    bytes to splice verbatim (memo hits, service tokens, wide integers the
+    C core punts on) OR (wire_name_bytes, fields_tuple, memoize_bool) for
+    the caller to encode."""
+    if isinstance(value, (int, float)):  # wide-int fallback from C
+        out = bytearray()
+        _encode(out, value)
+        return bytes(out)
     global SerializeAsToken, current_token_context
     if SerializeAsToken is None:  # lazy: .tokens imports this module
         from .tokens import SerializeAsToken, current_token_context
@@ -525,6 +536,8 @@ def _memo_store(value: Any, enc: bytes) -> None:
 
 def deserialize(data: bytes | SerializedBytes) -> Any:
     raw = data.bytes if isinstance(data, SerializedBytes) else data
+    if _load_native():
+        return _ccodec.decode(raw)
     value, pos = _decode(raw, 0)
     if pos != len(raw):
         raise DeserializationError(f"{len(raw) - pos} trailing bytes")
@@ -537,3 +550,38 @@ def serialized_hash(value: Any):
     from ..crypto.hashes import SecureHash
 
     return SecureHash(hashlib.sha256(serialize(value).bytes).digest())
+
+
+# The native core (corda_tpu_torch/native/_ccodec.c): decodes and encodes
+# the wire structure in C and calls _construct / _object_parts /
+# _memo_store for objects. Built and loaded at the first serialize or
+# deserialize, with a silent fallback: a host without gcc or Python.h
+# runs the pure-Python codec above, the semantic authority, and the
+# conformance tests hold the two to each other on the same corpus.
+_ccodec = None
+_native_tried = False
+
+
+def _load_native() -> bool:
+    """Enable the native core if it builds here (tried once a process);
+    True if it is active."""
+    global _ccodec, _native_tried
+    if _ccodec is not None:
+        return True
+    if _native_tried:
+        return False
+    _native_tried = True
+    from ..native import load_ccodec
+
+    module = load_ccodec()
+    if module is None:
+        return False
+    module.init(DeserializationError, _construct, _object_parts, _memo_store)
+    _ccodec = module
+    return True
+
+
+def codec_backend() -> str:
+    """Which codec ``serialize`` / ``deserialize`` run on this host:
+    "native" (the C core) or "python"."""
+    return "native" if _load_native() else "python"

@@ -183,3 +183,88 @@ def test_entry_points_ask_for_the_card_by_default(monkeypatch):
         ts.hash_many_auto([b"abc"], device_min=0)
     # Below the crossover the host answers and the card is not touched.
     assert ts.hash_many_auto([b"abc"], device_min=2)[1] == "host"
+
+
+# --- oversize work: the launch-span planner and the split dispatchers ------
+
+
+def _offsets(lengths):
+    return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+
+
+@pytest.mark.parametrize("lengths, max_bytes, max_items, want", [
+    # Exact byte boundary: a span's bytes must stay under max_bytes.
+    ([5, 5, 5, 5], 10, 100, [(0, 1), (1, 2), (2, 3), (3, 4)]),
+    ([5, 5, 5, 5], 11, 100, [(0, 2), (2, 4)]),
+    # Exact message boundary: a span holds fewer than max_items messages.
+    ([1] * 7, 100, 3, [(0, 2), (2, 4), (4, 6), (6, 7)]),
+    ([1] * 6, 100, 4, [(0, 3), (3, 6)]),
+    # One message at or over the byte limit gets a launch of its own.
+    ([2, 10, 2], 10, 100, [(0, 1), (1, 2), (2, 3)]),
+    ([2, 2, 30, 2, 2], 10, 100, [(0, 2), (2, 3), (3, 5)]),
+    # Empty messages take no bytes, only message slots.
+    ([0, 0, 0, 0, 0], 1, 3, [(0, 2), (2, 4), (4, 5)]),
+    # Under both limits: one launch; no messages: none.
+    ([3, 4, 5], 100, 100, [(0, 3)]),
+    ([], 10, 10, []),
+])
+def test_launch_spans_boundaries(lengths, max_bytes, max_items, want):
+    offsets = _offsets(lengths)
+    spans = ts.launch_spans(offsets, max_bytes, max_items)
+    assert spans == want
+    # Consecutive, covering, and under both limits unless one message alone.
+    assert [lo for lo, _ in spans] == [0] + [hi for _, hi in spans][:-1] \
+        or not spans
+    assert (spans[-1][1] if spans else 0) == len(lengths)
+    for lo, hi in spans:
+        assert 0 < hi - lo < max_items
+        assert (offsets[hi] - offsets[lo] < max_bytes) or hi - lo == 1
+
+
+def test_launch_spans_group_whole_trees():
+    # merkle_reduce's planner: m trees of `width` nodes, each group of
+    # fewer than the limit's nodes, a tree at the limit alone.
+    width, m = 9, 10
+    assert ts.tree_groups(m, width, 28) == [(0, 3), (3, 6), (6, 9), (9, 10)]
+    assert ts.tree_groups(m, width, 27) == [(0, 2), (2, 4), (4, 6), (6, 8),
+                                            (8, 10)]
+    assert ts.tree_groups(m, width, 9) == [(i, i + 1) for i in range(m)]
+    assert ts.tree_groups(m, width, 10) == [(i, i + 1) for i in range(m)]
+    assert ts.tree_groups(0, width, 28) == []
+    assert ts.tree_groups(m, width, 91) == [(0, m)]
+
+
+def test_sha256_flat_splits_oversize_buffers(monkeypatch):
+    # The byte and message limits cut to a few hundred, so the dispatcher
+    # splits into views with rebased offsets; digests = hashlib and the JAX
+    # package.
+    calls = []
+    plain = ts.sha256_flat_reference
+
+    def counting(data, offsets):
+        calls.append((int(data.numel()), int(offsets.shape[0]) - 1))
+        assert int(offsets[0]) == 0 and int(offsets[-1]) == data.numel()
+        return plain(data, offsets)
+
+    monkeypatch.setattr(ts, "sha256_flat_reference", counting)
+    monkeypatch.setattr(ts, "SHA256_MAX_BYTES", 300)
+    monkeypatch.setattr(ts, "SHA256_MAX_MESSAGES", 7)
+    rng = random.Random(3)
+    msgs = [rng.randbytes(rng.randrange(0, 150)) for _ in range(40)]
+    msgs[17] = rng.randbytes(400)  # over the byte limit: its own launch
+    got = ts.sha256_many(msgs, device="cpu")
+    assert got == _sha(msgs) == sj.sha256_many(msgs)
+    assert len(calls) >= 7 and (400, 1) in calls
+    assert all(b < 300 and k < 7 for b, k in calls if (b, k) != (400, 1))
+    assert sum(k for _, k in calls) == len(msgs)
+
+
+def test_merkle_reduce_splits_oversize_levels(monkeypatch):
+    monkeypatch.setattr(ts, "MERKLE_MAX_NODES", 20)
+    rng = random.Random(5)
+    groups = [[rng.randbytes(32) for _ in range(9)] for _ in range(11)]
+    want = [MerkleTree.build([SecureHash(h) for h in g]).hash.bytes
+            for g in groups]
+    assert ts.merkle_roots(groups, device="cpu") == want
+    assert want == [bytes(JaxMerkleTree.build(
+        [JaxSecureHash(h) for h in g]).hash.bytes) for g in groups]

@@ -1,7 +1,9 @@
-"""The port's verify sidecar: wire codec identical to the JAX package's, a
-CPU server answering both the port's client and the JAX package's
-SidecarVerifier (wire compatibility with the existing notary cluster), and
-STATUS_ERR for the ops this server does not serve yet. Exact comparisons.
+"""The port's verify sidecar: wire codec identical to the JAX package's, and
+a CPU server answering the port's wire helpers and the JAX package's
+SidecarVerifier (wire compatibility with the existing notary cluster).
+The QoS lanes, the metrics op and adaptive coalescing are covered by
+tests/test_torch_sidecar_qos.py, the port's own client by
+tests/test_torch_verify_client.py. Exact comparisons.
 """
 
 import socket
@@ -115,33 +117,6 @@ def test_jax_sidecar_verifier_gets_true_false(server):
         client.warm()  # OP_PING round trip
     finally:
         client._drop_connection()
-
-
-@pytest.mark.parametrize("op", ["qos", "metrics"])
-def test_unsupported_ops_get_status_err(server, op):
-    sock = sidecar.connect(server.address, timeout=30)
-    try:
-        if op == "qos":
-            pk, msg, sig = _signed(1)
-            payload = jwire.encode_verify_request_qos(
-                5, [jprov.VerifyJob(pk, msg, sig)], jwire.LANE_CODE_BULK, 0)
-            sidecar.send_frame(sock, payload)
-            reply = sidecar.recv_frame(sock)
-            rop, rid, status, _tier, _w, _v = \
-                sidecar._VERIFY_REPLY_HDR.unpack_from(reply)
-            assert (rop, rid) == (sidecar.OP_VERIFY, 5)
-        else:
-            sidecar.send_frame(sock, sidecar._REQ_HDR.pack(sidecar.OP_METRICS, 6))
-            reply = sidecar.recv_frame(sock)
-            rop, rid, status = sidecar._REPLY_HDR.unpack_from(reply)
-            assert (rop, rid) == (sidecar.OP_METRICS, 6)
-        assert status == sidecar.STATUS_ERR
-        # the connection stays usable: a ping still answers
-        sidecar.send_frame(sock, sidecar._REQ_HDR.pack(sidecar.OP_PING, 7))
-        assert sidecar._REPLY_HDR.unpack_from(sidecar.recv_frame(sock)) == (
-            sidecar.OP_PING, 7, sidecar.STATUS_OK)
-    finally:
-        sock.close()
 
 
 def test_requests_coalesce_across_clients(tmp_path):
