@@ -99,7 +99,27 @@ Phases, in order; any failure exits non-zero and prints no result:
                  over the wave's leaf messages, 256 ... 131,072.
  19. oversize -- hash_many_auto on 2,049 messages of 1 MiB (more than one
                  launch takes) = hashlib, in at least two launches.
- 20. the verify kernel's registers, static SASS counts, resident blocks
+ 20. notary   -- the notary's main path: 1,000 DummyContract issue-and-move
+                 transactions (10 with a flipped signature byte) plus 5
+                 second spends, NotaryClientFlow from Alice over the port's
+                 MockNetwork to a simple and to a validating notary, every
+                 micro-batch of the verify pump through
+                 TorchVerifier("cuda") and, in turns, CpuVerifier (card,
+                 host, host, card); one burst, and validating waves of 16
+                 and 128 flows. Outcomes and notary signature bytes on the
+                 card must equal the host's, committed inputs the
+                 notarised count; every batch of a card run must take the
+                 card (no host batch, device batches = the nodes' verify
+                 batches) through both verify kernels; no node may
+                 degrade. Then the simple burst with the async verify pump
+                 on Alice's state machine: outcomes equal the host's, and
+                 with one verify.device fault armed the failed batch's
+                 flows get the error while nothing degrades or takes the
+                 host. Notarisations/s, per-flow p50 / p99 / max, the wall
+                 split into verify_batch and the rest, per-node batches,
+                 and the device's idle share from a torch.profiler trace
+                 of one more simple card burst (that run's own wall).
+ 21. the verify kernel's registers, static SASS counts, resident blocks
      per SM and waves at N_MAIN, and the SHA-256 kernels' SASS counts (no
      byte loads in sha256_many's block loop) and occupancy at the wave;
      the kernels line, then the device line (last).
@@ -2114,6 +2134,312 @@ def out_dir() -> str:
                         "chiprun_out")
 
 
+# --- the notary: flows, the verify pump, the in-memory network -------------
+
+# BASELINE config 1's size: raft-notary-demo's 1,000 DummyContract
+# transactions (samples/raft-notary-demo, NotaryDemo.kt), 1% of them with a
+# flipped signature byte, plus 5 second spends that must meet a conflict.
+NOTARY_N = 1000
+NOTARY_BAD = 10
+NOTARY_DOUBLE = 5
+NOTARY_SEED = SEED + 7
+NOTARY_WAVES = (16, 128)
+NOTARY_RUNS = ((False, None), (True, None), (True, NOTARY_WAVES[0]),
+               (True, NOTARY_WAVES[1]))
+
+
+def device_busy_ms(prof) -> tuple[float | None, int]:
+    """Milliseconds during which the card ran anything (the union of the
+    traced device activities: kernels, copies, sets) and the number of
+    the verify kernels' launches the trace holds; (None, 0) when the
+    trace holds no device activity."""
+    spans, ours = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        ours += any(k in e.name() for k in ("ed25519_verify_kernel",
+                                            "sha512_challenge_kernel"))
+    if not spans:
+        return None, 0
+    busy, end = 0.0, None
+    for s, t in sorted(spans):
+        if end is None or s > end:
+            busy += t - s
+            end = t
+        elif t > end:
+            busy += t - end
+            end = t
+    return busy / 1e6, ours
+
+
+def notary_run(nl, api, provider, kernels, verifier, validating, wave,
+               work, profile=False, pump=None):
+    """One run of the workload on a fresh MockNetwork through ``verifier``
+    (installed process-wide too, for any check outside the pump); the
+    card's launches counted from 0. ``pump``: an AsyncVerifyService class,
+    installed over Alice's verifier (the only node that verifies in the
+    simple notary's run) and closed after the run."""
+    provider.set_verifier(verifier)
+    svc = None
+    try:
+        net, notary, alice, bob = nl.make_network(api, verifier, validating)
+        if pump is not None:
+            svc = pump(alice.smm.verifier, depth=2)
+            alice.smm.async_verify = svc
+        if work is None:
+            work = nl.build_workload(api, notary, alice, bob, NOTARY_N,
+                                     NOTARY_BAD, NOTARY_DOUBLE, NOTARY_SEED)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        prof = None
+        if profile:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        try:
+            res = nl.run_workload(
+                api, net, notary, alice, bob, work, wave=wave,
+                settle=None if svc is None else nl.run_network_async)
+            torch.cuda.synchronize()
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+        res["launches"] = dict(kernels.LAUNCHES)
+        res["device_batches"] = getattr(verifier, "device_batches", None)
+        res["host_batches"] = getattr(verifier, "host_batches", None)
+        if prof is not None:
+            res["device_busy_ms"], res["traced_verify_launches"] = \
+                device_busy_ms(prof)
+        if svc is not None:
+            res["pump_failed_batches"] = svc.failed_batches
+        net.stop_nodes()
+        return res, work
+    finally:
+        if svc is not None:
+            check(svc.close(), "the async verify pump did not stop")
+        provider.set_verifier(None)
+
+
+def notary_summary(res) -> dict:
+    n = NOTARY_N
+    lat = percentiles_ms(res["flow_s"][:n])
+    return {
+        "notarisations_s": res["notarised"] / res["wall_s"],
+        "wall_ms": res["wall_s"] * 1e3,
+        "verify_batch_ms": res["verify_s"] * 1e3,
+        "rest_ms": (res["wall_s"] - res["verify_s"]) * 1e3,
+        "latency": lat,
+        "second_spends": percentiles_ms(res["flow_s"][n:]),
+        "nodes": res["nodes"], "launches": res["launches"],
+        "device_batches": res["device_batches"],
+        "host_batches": res["host_batches"],
+        "notarised": res["notarised"],
+        "committed_count": res["committed_count"],
+    }
+
+
+def notary_pump(nl, api, provider, kernels, async_verify, faults, work,
+                card):
+    """The simple burst with the async verify pump on Alice's state
+    machine: on the card and on the host (the same outcomes and notary
+    signatures, every card batch on the card), then on the card with one
+    ``verify.device`` fault armed. A raised verify on the card's kernels
+    must reach its flows as an error: they fail, the others notarise, no
+    node degrades, the gate stays open and no batch takes the host."""
+    runs = {}
+    for side in ("card", "host"):
+        verifier = (provider.TorchVerifier(device="cuda") if side == "card"
+                    else provider.CpuVerifier())
+        runs[side], _ = notary_run(nl, api, provider, kernels, verifier,
+                                   False, None, work,
+                                   pump=async_verify.AsyncVerifyService)
+    card_res, host = runs["card"], runs["host"]
+    check(card_res["outcomes"] == host["outcomes"]
+          and card_res["committed"] == host["committed"],
+          "notary pump: card outcomes, signatures or committed inputs "
+          "differ from the host run's")
+    check(card_res["host_batches"] == 0 and card_res["device_batches"]
+          == card_res["nodes"]["Alice"]["verify_batches"] > 0
+          and card_res["pump_failed_batches"] == 0,
+          f"notary pump: not every batch took the card: device "
+          f"{card_res['device_batches']} host {card_res['host_batches']}")
+    check(card_res["launches"]["ed25519_verify"] > 0
+          and card_res["launches"]["sha512_challenge"] > 0,
+          f"notary pump: the card run did not launch both verify kernels: "
+          f"{card_res['launches']}")
+    verifier = provider.TorchVerifier(device="cuda")
+    faults.arm(faults.FaultPlan(SEED, [faults.FaultRule(
+        "verify.device", "fail", max_fires=1)]))
+    try:
+        fault_res, _ = notary_run(nl, api, provider, kernels, verifier,
+                                  False, None, work,
+                                  pump=async_verify.AsyncVerifyService)
+        injected = faults.injected()
+    finally:
+        faults.disarm()
+    failed = sum(o == ("FlowException", None)
+                 for o in fault_res["outcomes"])
+    check(injected == {"verify.device:fail": 1}
+          and fault_res["pump_failed_batches"] == 1 and failed > 0,
+          f"notary pump fault: injected {injected}, failed batches "
+          f"{fault_res['pump_failed_batches']}, {failed} flows failed")
+    check(all(m["verify_device_degraded"] == 0
+              for m in fault_res["nodes"].values())
+          and verifier.degraded == 0 and verifier.device_gate is None
+          and fault_res["host_batches"] == 0
+          and fault_res["device_batches"] > 0,
+          "notary pump fault: a raised kernel verify degraded the verifier "
+          f"or took the host: degraded {verifier.degraded}, host batches "
+          f"{fault_res['host_batches']}")
+    summary = {"card": notary_summary(card_res), "host": notary_summary(host),
+               "fault": {"failed_flows": failed,
+                         "notarised": fault_res["notarised"],
+                         "device_batches": fault_res["device_batches"],
+                         "host_batches": fault_res["host_batches"]}}
+    for side in ("card", "host"):
+        r, lat = summary[side], summary[side]["latency"]
+        log(f"{card} | notary simple-burst pump {side}: "
+            f"{r['notarisations_s']:.1f} notarisations/s; flow p50 "
+            f"{ms_or_na(lat['p50_ms'])} ms p99 {ms_or_na(lat['p99_ms'])} ms "
+            f"max {ms_or_na(lat['max_ms'])} ms over {lat['n']}; "
+            f"device/host batches {r['device_batches']}/{r['host_batches']}; "
+            f"launches verify {r['launches']['ed25519_verify']} challenge "
+            f"{r['launches']['sha512_challenge']}")
+    log(f"{card} | notary pump fault: one verify.device failure on the "
+        f"card -> {failed} flows failed with the error, "
+        f"{fault_res['notarised']} notarised, no degrade, device/host "
+        f"batches {fault_res['device_batches']}/{fault_res['host_batches']}")
+    return summary
+
+
+def phase_notary(provider, kernels, async_verify, faults, card):
+    """Phase 20: the notary's main path through the port's entry points:
+    NotaryClientFlow from Alice on a MockNetwork to a simple and to a
+    validating notary, every micro-batch of the state machines' verify
+    pump through TorchVerifier("cuda") and, in turns, CpuVerifier (card,
+    host, host, card); the burst and, validating, waves of 16 and 128.
+    Card outcomes and notary signatures must equal the host run's, the
+    committed inputs must equal the notarised count, the card runs must
+    take device batches through both verify kernels, and no node may
+    degrade, and every batch of a card run must take the card. Then the
+    simple burst with the async verify pump on Alice, once plain (outcomes
+    equal the host run's) and once with one ``verify.device`` fault (the
+    failed batch's flows get the error; no degrade, no host batch). Then
+    one more card burst (simple notary) under torch.profiler for the
+    device's busy time over that run's own wall."""
+    from corda_tpu_torch import native
+    from corda_tpu_torch.testing import notary_load as nl
+
+    # Nothing builds or loads on the flow path: the native core, the
+    # kernels' libraries and the first launches come before any run.
+    check(native.load_cverify() is not None, "the native core did not build")
+    provider.TorchVerifier(device="cuda").warm()
+    torch.cuda.synchronize()
+    api = nl.port_api()
+    works = {}
+    out = {}
+    for validating, wave in NOTARY_RUNS:
+        key = f"{'validating' if validating else 'simple'}-" + (
+            "burst" if wave is None else f"waves{wave}")
+        runs = {"card": [], "host": []}
+        for side in ("card", "host", "host", "card"):
+            verifier = (provider.TorchVerifier(device="cuda")
+                        if side == "card" else provider.CpuVerifier())
+            res, works[validating] = notary_run(
+                nl, api, provider, kernels, verifier, validating, wave,
+                works.get(validating))
+            runs[side].append(res)
+        work = works[validating]
+        want = nl.expected_outcomes(work)
+        host = runs["host"][0]
+        kinds = [o[:1] if o[0] == "ok" else o for o in host["outcomes"]]
+        check(kinds == want, f"notary {key}: host outcomes differ from the "
+              "workload's (flipped signatures refused, second spends "
+              "conflicting, the rest notarised)")
+        for res in runs["host"][1:] + runs["card"]:
+            check(res["outcomes"] == host["outcomes"],
+                  f"notary {key}: outcomes or notary signature bytes differ "
+                  "between runs")
+            check(res["committed"] == host["committed"],
+                  f"notary {key}: committed inputs differ between runs")
+        for res in runs["host"] + runs["card"]:
+            check(res["committed_count"] == res["notarised"]
+                  == NOTARY_N - NOTARY_BAD,
+                  f"notary {key}: committed {res['committed_count']} != "
+                  f"notarised {res['notarised']}")
+            for name, m in res["nodes"].items():
+                check(m["verify_device_degraded"] == 0,
+                      f"notary {key}: {name} degraded its device tier")
+        for res in runs["card"]:
+            node_batches = sum(m["verify_batches"]
+                               for m in res["nodes"].values())
+            check(res["device_batches"] > 0,
+                  f"notary {key}: the card run took no device batch")
+            check(res["host_batches"] == 0
+                  and res["device_batches"] == node_batches,
+                  f"notary {key}: the card run took the host tier or "
+                  f"batches outside the pump: device {res['device_batches']}"
+                  f" host {res['host_batches']} node batches {node_batches}")
+            check(res["launches"]["ed25519_verify"] > 0
+                  and res["launches"]["sha512_challenge"] > 0,
+                  f"notary {key}: the card run did not launch both verify "
+                  f"kernels: {res['launches']}")
+        out[key] = {side: [notary_summary(r) for r in rs]
+                    for side, rs in runs.items()}
+        for side in ("card", "host"):
+            for r in out[key][side]:
+                lat = r["latency"]
+                log(f"{card} | notary {key} {side}: "
+                    f"{r['notarisations_s']:.1f} notarisations/s; flow "
+                    f"p50 {ms_or_na(lat['p50_ms'])} ms p99 "
+                    f"{ms_or_na(lat['p99_ms'])} ms max "
+                    f"{ms_or_na(lat['max_ms'])} ms over {lat['n']}; wall "
+                    f"{r['wall_ms']:.1f} ms = verify_batch "
+                    f"{r['verify_batch_ms']:.1f} + rest {r['rest_ms']:.1f}; "
+                    f"device/host batches {r['device_batches']}/"
+                    f"{r['host_batches']}; launches verify "
+                    f"{r['launches']['ed25519_verify']} challenge "
+                    f"{r['launches']['sha512_challenge']} sha256_many "
+                    f"{r['launches']['sha256_many']} sha256_pair "
+                    f"{r['launches']['sha256_pair']}; nodes " + "; ".join(
+                        f"{k} {v['verify_batches']} batches / "
+                        f"{v['verify_sigs']} sigs, largest "
+                        f"{v['largest_batch']}"
+                        for k, v in r["nodes"].items()))
+        log(f"{card} | notary {key}: checks passed (outcomes and "
+            "signatures = host, committed = notarised, every card batch on "
+            "the card: host batches 0, device batches = node batches, both "
+            "verify kernels launched, no degrade)")
+    # The notary path's launches of each kernel, first card run of each
+    # configuration (the per-path count of the record file).
+    out["launches"] = {key: runs["card"][0]["launches"]
+                       for key, runs in out.items()}
+    out["pump"] = notary_pump(nl, api, provider, kernels, async_verify,
+                              faults, works[False], card)
+    prof_res, _ = notary_run(nl, api, provider, kernels,
+                             provider.TorchVerifier(device="cuda"), False,
+                             None, works[False], profile=True)
+    busy = prof_res["device_busy_ms"]
+    wall = prof_res["wall_s"] * 1e3
+    walls = [r["wall_ms"] for r in out["simple-burst"]["card"]]
+    idle = None if busy is None else 1 - busy / wall
+    log(f"{card} | notary simple-burst card under torch.profiler: wall "
+        f"{wall:.1f} ms (unprofiled card walls "
+        + ", ".join(f"{w:.1f}" for w in walls) + " ms), device busy "
+        + ("not measured (no device activity traced)" if busy is None else
+           f"{busy:.3f} ms ({prof_res['traced_verify_launches']} verify "
+           f"kernel launches traced) -> device idle {idle:.4f} of this "
+           "run's wall (the simple burst only)"))
+    out["profiled_simple_burst"] = {
+        "wall_ms": wall, "unprofiled_card_wall_ms": walls,
+        "device_busy_ms": busy,
+        "traced_verify_launches": prof_res["traced_verify_launches"],
+        "device_idle_share": idle}
+    return out
+
+
 # --- parent against change: the SHA-256 kernels of two trees in turns ------
 
 
@@ -2180,10 +2506,7 @@ def sha256_turns(trees: list[str]) -> int:
     from corda_tpu_torch.transactions import signed
     from corda_tpu_torch.transactions.signed import SignedTransaction
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     log(card)
     blobs, ids, _ = build_wave(np.random.default_rng(SEED))
     batch = [deserialize(b) for b in blobs]
@@ -2245,6 +2568,14 @@ def sha256_turns(trees: list[str]) -> int:
     return 0
 
 
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -2258,12 +2589,10 @@ def main() -> int:
     from corda_tpu_torch.ops import ed25519 as ted
     from corda_tpu_torch.ops import sha256 as tsha256
     from corda_tpu_torch.ops import sha512 as tsha
+    from corda_tpu_torch.testing import faults
 
     # 1. probe
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -2361,7 +2690,10 @@ def main() -> int:
     hash_cross = phase_hash_crossover(tsha256, leaf_msgs, card)
     oversize_res = phase_sha256_oversize(tsha256, kernels, card)
 
-    # 20. kernels line
+    # 20. the notary: flows, the verify pump and the in-memory network
+    notary_res = phase_notary(provider, kernels, async_verify, faults, card)
+
+    # 21. kernels line
     bound1, by1 = bound_ms(N_MAIN * VERIFY_BYTES,
                            main_res["verify_least_int_ops"])
     bound2, by2 = bound_ms(N_MAIN * CHALLENGE_BYTES,
@@ -2432,6 +2764,7 @@ def main() -> int:
               "adaptive_coalesce": adaptive_res, "verify_pump": pump_res,
               "batch_sign": sign_res, "resolve": resolve_res,
               "hash_crossover": hash_cross, "sha256_oversize": oversize_res,
+              "notary": notary_res,
               "ptxas": {s: ptxas_summary(_build, s) for s in _build.SOURCES},
               "sass_sha512_challenge": sass2,
               "challenge_least_int_ops": CHALLENGE_INT_OPS,

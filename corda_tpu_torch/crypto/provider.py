@@ -316,6 +316,13 @@ class TorchVerifier(DeviceRoutedVerifier):
                 [VerifyJob(bytes(32), b"", bytes(64))])
 
 
+def host_verify(jobs: Sequence[VerifyJob]) -> np.ndarray:
+    """Verify a batch on the host tier regardless of any verifier's routing
+    state -- the degrade path's re-verify (oracle-exact accept set, so a
+    batch the device would have accepted is accepted here too)."""
+    return _dispatch_mixed(jobs, CpuVerifier._verify_ed25519_host)
+
+
 def degrade_device(verifier, cooldown_s: float) -> bool:
     """Demote a device-backed verifier to its host tier after a device-path
     failure, and schedule a re-probe that reopens the gate once the device

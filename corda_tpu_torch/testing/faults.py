@@ -1,17 +1,37 @@
-"""Deterministic fault injection.
+"""Deterministic fault injection for the notary pipeline.
 
-The port's own copy of the rule engine of ``corda_tpu/testing/faults.py``:
-the same points, rules, seeded schedules and TOML rule format, and the same
+The port's own copy of ``corda_tpu/testing/faults.py``: the same points,
+rules, seeded schedules, partition specs and TOML plan format, and the same
 ``PLAN_ENV`` name, so one plan file arms both packages' processes. In this
-package the verify pump's feeder fires ``verify.device``
-(crypto/async_verify.py), with the actions fail, slow and crash. The
-reference's partition schedules and its fsync / disk-corrupt / disk-full
-hooks belong to the notary pipeline's transport and storage, which this
-package does not have yet; a plan that declares a partition is refused.
+package the hooks fire from:
 
-A process arms at most one :class:`FaultPlan`. A hook consults the
-module-level ``ACTIVE`` plan; when no plan is armed it is a single
+* ``transport.send`` -- inmem ``_transmit``: drop, delay, duplicate,
+  reorder, crash;
+* ``transport.recv`` -- inmem ``pump``: drop, delay, crash;
+* ``transport.partition`` -- inmem ``_transmit`` / ``pump``: the
+  schedule-driven cut (see below);
+* ``verify.device`` -- the AsyncVerifyService feeder thread: fail, slow,
+  crash;
+* ``checkpoint.write`` -- SMM ``_write_checkpoint`` (:func:`fire_fsync`):
+  fail, stall, crash.
+
+The reference's disk-corrupt and disk-full hooks and its builtin plans wait
+for the persistence slice (ROADMAP.md); their points stay in ``POINTS`` so
+plan files validate the same in both packages.
+
+A process arms at most one :class:`FaultPlan`.  A hook consults the
+module-level ``ACTIVE`` plan; when no plan is armed the hook is a single
 attribute check (``faults.ACTIVE is not None``).
+
+``transport.partition`` is NOT rule-driven: a plan carries a list of
+:class:`PartitionSpec` entries (symmetric ``split``, one-way ``asym``,
+toggling ``flap``) whose activity is a pure function of the point's
+event counter — the transport offers every frame to
+:func:`fire_partition` and drops it while a cut covering the
+(sender, recipient) pair is live.  ``bind_partition_nodes`` resolves
+auto-sided specs over the cluster identities; ``heal_partitions`` lifts
+every cut.  TOML plans declare them as ``[[partition]]`` tables
+(``kind`` / ``a`` / ``b`` / ``after`` / ``duration`` / ``period``).
 
 Determinism: every rule owns a ``random.Random`` seeded from
 ``(plan seed, point, rule index)``, and probability draws consume that
@@ -24,10 +44,10 @@ TOML plan format (see ``plan_from_toml``)::
     seed = 7
 
     [[rule]]
-    point = "verify.device"
-    action = "fail"
+    point = "transport.send"
+    action = "drop"
     p = 0.05           # fire probability per event (default 1.0)
-    delay_s = 0.0      # slow duration
+    delay_s = 0.0      # delay/stall/slow duration (inmem: ticks)
     after = 0          # skip the first N events at this point
     max_fires = 100    # stop firing after N fires (0 = unlimited)
     node = "Raft1"     # only armed on this node (default: all)
@@ -42,17 +62,24 @@ from __future__ import annotations
 import os
 import random
 import threading
+import time
 from dataclasses import dataclass, field
 
 __all__ = [
     "POINTS",
     "FaultRule",
     "FaultPlan",
+    "PartitionSpec",
     "ACTIVE",
     "arm",
     "disarm",
     "injected",
     "fire",
+    "fire_fsync",
+    "fire_partition",
+    "partitioned",
+    "bind_partition_nodes",
+    "heal_partitions",
     "plan_from_toml",
     "arm_from_env",
     "PLAN_ENV",
@@ -99,6 +126,59 @@ class FaultRule:
         return self.max_fires > 0 and self.fires >= self.max_fires
 
 
+@dataclass
+class PartitionSpec:
+    """One scheduled network partition (the ``transport.partition`` point).
+
+    Scheduling is EVENT-counted, not wall-clocked: every frame offered to
+    ``fire_partition`` advances the point's event counter, and a spec is
+    active as a pure function of that counter — two runs of the same plan
+    over the same traffic cut identically, with no timing dependence.
+
+    ``kind``:
+      * ``split`` — symmetric split-brain: frames between side ``a`` and
+        side ``b`` drop in BOTH directions while the cut holds.
+      * ``asym`` — one-way cut: frames from ``a`` to ``b`` drop; ``b`` to
+        ``a`` still delivers (the half-open link Raft's paper warns about).
+      * ``flap`` — a ``split`` that toggles every ``period`` events; a
+        ``period`` of 0 derives one deterministically from the plan seed.
+
+    Sides hold node identities (``str(transport address)`` — both
+    transports offer their address objects and the engine normalizes
+    with ``str()``, so TcpAddress and InMemoryAddress mix-ins match
+    however a hook spells the endpoint). Empty sides resolve at
+    ``bind_partition_nodes`` time: ``split``/``flap`` put the FIRST
+    ``n//2`` bound ids on side ``a`` (the minority when n is odd, so a
+    harness that binds the leader first proves the minority-leader case);
+    ``asym`` isolates the first id's egress.
+    """
+
+    kind: str                     # split | asym | flap
+    a: tuple = ()                 # side-a identities (empty = auto)
+    b: tuple = ()                 # side-b identities (empty = auto)
+    after: int = 0                # events before the cut arms
+    duration: int = 0             # events the cut (or flap phase) spans;
+    #                               0 = held until heal_partitions()
+    period: int = 0               # flap half-cycle in events (0 = seeded)
+
+    def active(self, seen: int) -> bool:
+        """Pure schedule query: is this cut live after *seen* events?"""
+        since = seen - self.after
+        if since <= 0:
+            return False
+        if self.duration > 0 and since > self.duration:
+            return False
+        if self.kind == "flap":
+            return ((since - 1) // max(1, self.period)) % 2 == 0
+        return True
+
+    def cuts(self, src: str, dst: str) -> bool:
+        """Does this spec drop a *src* -> *dst* frame while active?"""
+        if src in self.a and dst in self.b:
+            return True
+        return self.kind != "asym" and src in self.b and dst in self.a
+
+
 class FaultPlan:
     """A seeded set of fault rules, armed process-wide via :func:`arm`.
 
@@ -109,7 +189,8 @@ class FaultPlan:
     """
 
     def __init__(self, seed: int, rules: list[FaultRule],
-                 node_name: str | None = None):
+                 node_name: str | None = None,
+                 partitions: list[PartitionSpec] | None = None):
         self.seed = int(seed)
         self.node_name = node_name
         self._lock = threading.Lock()
@@ -131,6 +212,85 @@ class FaultPlan:
         self._by_point: dict[str, list[FaultRule]] = {}
         for rule in self.rules:
             self._by_point.setdefault(rule.point, []).append(rule)
+        self.partitions: list[PartitionSpec] = list(partitions or [])
+        for idx, spec in enumerate(self.partitions):
+            if spec.kind not in ("split", "asym", "flap"):
+                raise ValueError(f"unknown partition kind {spec.kind!r}")
+            spec.a, spec.b = tuple(spec.a), tuple(spec.b)
+            if spec.kind == "flap" and spec.period <= 0:
+                # The seeded flap period the docstring promises.
+                spec.period = random.Random(
+                    f"{self.seed}:transport.partition:flap:{idx}"
+                ).randrange(40, 160)
+        self._partitions_healed = False
+        # Edge-detection state per spec: a cut transition (inactive ->
+        # active) counts once as "transport.partition:cut".
+        self._partition_was_active = [False] * len(self.partitions)
+
+    # -- the transport.partition point -------------------------------------
+
+    def bind_partition_nodes(self, node_ids) -> None:
+        """Resolve auto (empty-sided) partition specs over the cluster's
+        identities, in the caller's order — the harness decides which
+        side the leader lands on by binding it first."""
+        ids = tuple(str(n) for n in node_ids)
+        with self._lock:
+            for spec in self.partitions:
+                if spec.a and spec.b:
+                    continue
+                if spec.kind == "asym":
+                    spec.a, spec.b = ids[:1], ids[1:]
+                else:
+                    spec.a, spec.b = ids[:len(ids) // 2], ids[len(ids) // 2:]
+
+    def heal_partitions(self) -> None:
+        """Permanently lift every cut (the harness's timed heal)."""
+        with self._lock:
+            self._partitions_healed = True
+
+    def fire_partition(self, src, dst) -> bool:
+        """Record one frame event at ``transport.partition``; return True
+        when an active cut drops the *src* -> *dst* frame.  Unlike
+        :meth:`partitioned` this ADVANCES the schedule — call it exactly
+        once per offered frame."""
+        src, dst = str(src), str(dst)
+        with self._lock:
+            self.events["transport.partition"] = seen = \
+                self.events.get("transport.partition", 0) + 1
+            if self._partitions_healed or not self.partitions:
+                return False
+            drop = False
+            for idx, spec in enumerate(self.partitions):
+                live = spec.active(seen)
+                if live and not self._partition_was_active[idx]:
+                    self.counters["transport.partition:cut"] = \
+                        self.counters.get("transport.partition:cut", 0) + 1
+                    try:  # telemetry is best-effort from the fault engine
+                        from ..obs import telemetry as _tm
+
+                        _tm.inc("partition_cuts_total")
+                    # lint: allow(no-silent-except) the fault engine sits inside every transport send — a broken/partially-imported telemetry module must cost the counter, never the frame
+                    except Exception:  # noqa: BLE001 - never fail a frame
+                        pass
+                self._partition_was_active[idx] = live
+                if live and spec.cuts(src, dst):
+                    drop = True
+            if drop:
+                self.counters["transport.partition:drop"] = \
+                    self.counters.get("transport.partition:drop", 0) + 1
+            return drop
+
+    def partitioned(self, src, dst) -> bool:
+        """Pure query: would a *src* -> *dst* frame drop RIGHT NOW?  Never
+        advances the event counter — safe for polling (the TCP bridge
+        parks on this instead of spin-resending across a held cut)."""
+        src, dst = str(src), str(dst)
+        with self._lock:
+            if self._partitions_healed:
+                return False
+            seen = self.events.get("transport.partition", 0)
+            return any(spec.active(seen) and spec.cuts(src, dst)
+                       for spec in self.partitions)
 
     def fire(self, point: str) -> tuple[str, float] | None:
         """Record one event at *point*; return ``(action, delay_s)`` when a
@@ -161,6 +321,10 @@ class FaultPlan:
         with self._lock:
             return dict(self.counters)
 
+    def event_counts(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self.events)
+
 
 # The armed plan.  Hooks read this exactly once per event:
 #   if faults.ACTIVE is not None: ...
@@ -190,6 +354,49 @@ def fire(point: str) -> tuple[str, float] | None:
     return plan.fire(point) if plan is not None else None
 
 
+def fire_partition(src, dst) -> bool:
+    """Hook body for ``transport.partition``: True = drop the frame.
+    Counts one schedule event; call once per offered frame."""
+    plan = ACTIVE
+    return plan.fire_partition(src, dst) if plan is not None else False
+
+
+def partitioned(src, dst) -> bool:
+    """Pure cut query against the armed plan (no schedule advance)."""
+    plan = ACTIVE
+    return plan.partitioned(src, dst) if plan is not None else False
+
+
+def bind_partition_nodes(node_ids) -> None:
+    """Resolve auto partition sides on the armed plan, if any."""
+    plan = ACTIVE
+    if plan is not None:
+        plan.bind_partition_nodes(node_ids)
+
+
+def heal_partitions() -> None:
+    """Lift every cut on the armed plan, if any."""
+    plan = ACTIVE
+    if plan is not None:
+        plan.heal_partitions()
+
+
+def fire_fsync(point: str) -> None:
+    """Shared hook body for durability points (``raft.fsync``,
+    ``checkpoint.write``): ``stall`` sleeps, ``fail`` raises OSError."""
+    plan = ACTIVE
+    if plan is None:
+        return
+    act = plan.fire(point)
+    if act is None:
+        return
+    action, delay_s = act
+    if action == "stall" and delay_s > 0:
+        time.sleep(delay_s)
+    elif action in ("fail", "raise"):
+        raise OSError(f"fault injected: {point} failure")
+
+
 def plan_from_toml(text: str, node_name: str | None = None) -> FaultPlan:
     """Parse a TOML plan (see module docstring for the format)."""
     try:
@@ -210,10 +417,17 @@ def plan_from_toml(text: str, node_name: str | None = None) -> FaultPlan:
             max_fires=int(raw.get("max_fires", 0)),
             node=raw.get("node"),
         ))
-    if data.get("partition"):
-        raise ValueError("partition schedules need the notary pipeline's "
-                         "transport, which this package does not have")
-    return FaultPlan(seed, rules, node_name=node_name)
+    partitions = []
+    for raw in data.get("partition", []):
+        partitions.append(PartitionSpec(
+            kind=raw["kind"],
+            a=tuple(raw.get("a", ())),
+            b=tuple(raw.get("b", ())),
+            after=int(raw.get("after", 0)),
+            duration=int(raw.get("duration", 0)),
+            period=int(raw.get("period", 0)),
+        ))
+    return FaultPlan(seed, rules, node_name=node_name, partitions=partitions)
 
 
 def arm_from_env(node_name: str | None = None) -> FaultPlan | None:

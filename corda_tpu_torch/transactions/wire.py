@@ -2,8 +2,7 @@
 
 The port's own copy of ``corda_tpu/transactions/wire.py``.
 ``to_ledger_transaction`` and ``build_filtered_transaction`` import
-``ledger.py`` and ``filtered.py`` lazily, as the original does; those
-modules are not ported yet (ROADMAP.md), so both raise ImportError.
+``ledger.py`` and ``filtered.py`` lazily, as the original does.
 
 Capability match for the reference's WireTransaction + BaseTransaction
 (reference: core/src/main/kotlin/net/corda/core/transactions/WireTransaction.kt,

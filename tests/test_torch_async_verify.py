@@ -3,8 +3,10 @@ fault plan (testing/faults.py) and span recorder (obs/trace.py), held to
 the JAX package's tests/test_async_verify.py service-level cases, plus
 the one divergence: AdaptiveCrossover's floor is bounded by the
 verifier's static crossover, shown against the JAX class on the same
-observation sequence. The node-level cases of the JAX file need the node,
-which the port does not have yet.
+observation sequence. The node-level cases of the JAX file need the TCP
+node, which the port does not have yet (tests/test_torch_notary_faults.py
+drives the pump's degrade path on a MockNode). The restored partition and
+fsync hooks are held to the JAX package's schedules here.
 """
 
 import threading
@@ -401,8 +403,70 @@ def test_arm_from_env_reads_plan_env(tmp_path, monkeypatch):
     assert faults.fire("verify.device") is None and faults.injected() == {}
 
 
-def test_partition_plans_are_refused():
-    toml = ('seed = 1\n[[partition]]\nkind = "split"\nafter = 10\n')
-    jfaults.plan_from_toml(toml)  # the reference schedules it
-    with pytest.raises(ValueError, match="partition"):
-        faults.plan_from_toml(toml)
+_PARTITION_PLANS = {
+    "split": 'seed = 1\n[[partition]]\nkind = "split"\nafter = 10\n'
+             'duration = 40\n',
+    "asym-sides": 'seed = 2\n[[partition]]\nkind = "asym"\na = ["n1"]\n'
+                  'b = ["n2", "n3"]\nafter = 5\n',
+    "flap-seeded": 'seed = 3\n[[rule]]\npoint = "transport.send"\n'
+                   'action = "drop"\np = 0.1\n[[partition]]\nkind = "flap"\n'
+                   'after = 4\nduration = 300\n',
+    "two-specs": 'seed = 4\n[[partition]]\nkind = "split"\nafter = 30\n'
+                 '[[partition]]\nkind = "asym"\nafter = 0\nduration = 20\n',
+}
+
+
+def _specs(plan):
+    return [(s.kind, s.a, s.b, s.after, s.duration, s.period)
+            for s in plan.partitions]
+
+
+@pytest.mark.parametrize("name", sorted(_PARTITION_PLANS))
+def test_partition_plans_equal_jax(name):
+    """Partition plans parse, bind, schedule, cut and heal as the JAX
+    package's do (the [[partition]] tables, the seeded flap period)."""
+    toml = _PARTITION_PLANS[name]
+    ours = faults.plan_from_toml(toml)
+    theirs = jfaults.plan_from_toml(toml)
+    assert _specs(ours) == _specs(theirs)
+    ids = ["n1", "n2", "n3"]
+    ours.bind_partition_nodes(ids)
+    theirs.bind_partition_nodes(ids)
+    assert _specs(ours) == _specs(theirs)
+    pairs = [(a, b) for a in ids for b in ids if a != b]
+    for k in range(360):
+        src, dst = pairs[k % len(pairs)]
+        assert ours.partitioned(src, dst) == theirs.partitioned(src, dst)
+        assert ours.fire_partition(src, dst) == theirs.fire_partition(src, dst)
+        assert ours.fire("transport.send") == theirs.fire("transport.send")
+        if k == 300:
+            ours.heal_partitions()
+            theirs.heal_partitions()
+    assert ours.injected() == theirs.injected()
+    assert ours.injected().get("transport.partition:cut", 0) >= 1
+    assert ours.event_counts() == theirs.event_counts()
+
+
+@pytest.mark.parametrize("action", ["fail", "stall"])
+def test_fire_fsync_schedule_equal_jax(action):
+    rule = dict(point="checkpoint.write", action=action, p=0.4, after=2,
+                delay_s=0.0005)
+
+    def schedule(mod):
+        mod.arm(mod.FaultPlan(8, [mod.FaultRule(**rule)]))
+        out = []
+        try:
+            for _ in range(60):
+                try:
+                    mod.fire_fsync("checkpoint.write")
+                    out.append(None)
+                except OSError as e:
+                    out.append(str(e))
+            return out, mod.injected()
+        finally:
+            mod.disarm()
+
+    ours, theirs = schedule(faults), schedule(jfaults)
+    assert ours == theirs
+    assert ours[1] != {}
+    assert faults.fire_fsync("checkpoint.write") is None  # disarmed

@@ -6,7 +6,8 @@ exactly, so ``corda_tpu_torch`` itself is not mistaken for ``corda_tpu``.
 A fresh interpreter then imports the port, verifies a 64-lane batch on the
 CPU through the device path's plain versions and through the host tier,
 primes the ids of a small transaction wave through the SHA-256 kernel's
-plain version, and must end with neither jax nor corda_tpu loaded.
+plain version, notarises through the port's MockNetwork with both notary
+kinds, and must end with neither jax nor corda_tpu loaded.
 """
 
 import ast
@@ -46,6 +47,31 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_or_corda_tpu_imports(path):
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+# The notary path's modules (each a copy of the JAX package's module of the
+# same path, or a cut of it): all are among the files checked above.
+NOTARY_PATH_MODULES = [
+    "utils/clock.py", "utils/progress.py", "qos/__init__.py",
+    "qos/context.py", "qos/admission.py", "qos/calibrate.py",
+    "transactions/ledger.py", "transactions/filtered.py",
+    "transactions/graph_search.py", "flows/__init__.py", "flows/api.py",
+    "flows/fetch.py", "flows/data_vending.py", "flows/resolve.py",
+    "flows/notary.py", "flows/finality.py", "node/messaging/__init__.py",
+    "node/messaging/api.py", "node/messaging/inmem.py",
+    "node/services/__init__.py", "node/services/api.py",
+    "node/services/inmemory.py", "node/services/notary.py",
+    "node/services/raft.py", "node/services/sharding.py",
+    "node/statemachine.py", "testing/mock_network.py", "testing/faults.py",
+    "testing/notary_load.py",
+]
+
+
+@pytest.mark.parametrize("rel", NOTARY_PATH_MODULES)
+def test_notary_path_module_is_checked(rel):
+    path = os.path.join(REPO, "corda_tpu_torch", rel)
+    assert path in _port_files()
     assert not _imported_roots(path) & FORBIDDEN
 
 
@@ -89,6 +115,17 @@ for i in range(3):
 wave = [deserialize(serialize(s).bytes) for s in stxs]
 assert SignedTransaction.prime_ids(wave, device_min=0, device="cpu") == "device"
 assert [s.tx.id for s in wave] == [s.id for s in stxs]
+# Notarise through the port's MockNetwork, both notary kinds.
+from corda_tpu_torch.testing import notary_load as nl
+api = nl.port_api()
+for validating in (False, True):
+    net, n, a, b = nl.make_network(api, provider.CpuVerifier(), validating)
+    work = nl.build_workload(api, n, a, b, 4, 1, 1, 3)
+    res = nl.run_workload(api, net, n, a, b, work)
+    kinds = [o[:1] if o[0] == "ok" else o for o in res["outcomes"]]
+    assert kinds == nl.expected_outcomes(work), kinds
+    assert res["committed_count"] == res["notarised"] == 3
+    net.stop_nodes()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu"))
 assert not bad, bad
