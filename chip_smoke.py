@@ -119,7 +119,32 @@ Phases, in order; any failure exits non-zero and prints no result:
                  split into verify_batch and the rest, per-node batches,
                  and the device's idle share from a torch.profiler trace
                  of one more simple card burst (that run's own wall).
- 21. the verify kernel's registers, static SASS counts, resident blocks
+ 21. node     -- the production node over TCP: (a) three port Nodes in
+                 this process over localhost TCP, each on its own sqlite
+                 with a seeded identity, round-robin run_once ([batch]
+                 max_sigs 4096, max_wait_ms 2.0, the async verify pump
+                 on), phase 20's workload to a simple and to a validating
+                 notary, one burst each, every node on verifier "torch"
+                 and "cpu" in turns (card, host, host, card); card
+                 outcomes, notary signatures and committed inputs must
+                 equal the host runs', every batch at or above the
+                 crossover must take the card, nothing may degrade; the
+                 wall split by the notary's round stages and phases, and
+                 phase 20's numbers beside these; one more simple card
+                 burst under torch.profiler for the device's idle share.
+                 (b) a Notary and Alice as real processes through python
+                 -m corda_tpu_torch.node.node (the port's driver), both on
+                 "torch" on the card, then both on "cpu": the open-loop
+                 ladder (60, 240, 720 tx/s offered, 250 flows a rate, at
+                 max_wait_ms 2 and 20) of IssueAndNotariseFlow through
+                 Alice's RPC; every flow must return a 64-hex id, and
+                 the moves the notary's sqlite commit log gains in a
+                 rung must be exactly the ids returned; on the
+                 card every batch at or above the crossover takes the
+                 card (from node_metrics and the batch-size histogram
+                 over RPC) and the notary's backend stamp is "cuda"; the
+                 notary must exit 0 on SIGTERM.
+ 22. the verify kernel's registers, static SASS counts, resident blocks
      per SM and waves at N_MAIN, and the SHA-256 kernels' SASS counts (no
      byte loads in sha256_many's block loop) and occupancy at the wave;
      the kernels line, then the device line (last).
@@ -138,6 +163,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2173,6 +2199,19 @@ def device_busy_ms(prof) -> tuple[float | None, int]:
     return busy / 1e6, ours
 
 
+@contextlib.contextmanager
+def device_trace(on: bool):
+    """torch.profiler (host and device activity) over the block when
+    ``on``; yields the profiler, else None."""
+    if not on:
+        yield None
+        return
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        yield prof
+
+
 def notary_run(nl, api, provider, kernels, verifier, validating, wave,
                work, profile=False, pump=None):
     """One run of the workload on a fresh MockNetwork through ``verifier``
@@ -2192,20 +2231,11 @@ def notary_run(nl, api, provider, kernels, verifier, validating, wave,
                                      NOTARY_BAD, NOTARY_DOUBLE, NOTARY_SEED)
         torch.cuda.synchronize()
         kernels.reset_launches()
-        prof = None
-        if profile:
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
-            prof.__enter__()
-        try:
+        with device_trace(profile) as prof:
             res = nl.run_workload(
                 api, net, notary, alice, bob, work, wave=wave,
                 settle=None if svc is None else nl.run_network_async)
             torch.cuda.synchronize()
-        finally:
-            if prof is not None:
-                prof.__exit__(None, None, None)
         res["launches"] = dict(kernels.LAUNCHES)
         res["device_batches"] = getattr(verifier, "device_batches", None)
         res["host_batches"] = getattr(verifier, "host_batches", None)
@@ -2437,6 +2467,385 @@ def phase_notary(provider, kernels, async_verify, faults, card):
         "device_busy_ms": busy,
         "traced_verify_launches": prof_res["traced_verify_launches"],
         "device_idle_share": idle}
+    return out
+
+
+# --- the node over TCP: the run loop, sqlite, RPC, real processes ----------
+
+# Each side's verifier kind for every node of a run (NodeConfig.verifier).
+NODE_KINDS = {"card": "torch", "host": "cpu"}
+NODE_TURNS = ("card", "host", "host", "card")
+# The reference's open-loop ladder (bench.py:716-719): offered tx/s, flows
+# a rate, and the two max_wait_ms settings.
+LADDER_RATES = (60.0, 240.0, 720.0)
+LADDER_FLOWS = 250
+LADDER_WAITS = (2.0, 20.0)
+LADDER_WARM = 20  # untimed flows before the first rung
+DEMO_CORDAPP = "corda_tpu_torch.tools.demo_cordapp"
+
+
+def percentiles90_ms(seconds) -> dict:
+    """percentiles_ms plus p90 (over P99_MIN_N samples or more)."""
+    out = percentiles_ms(seconds)
+    out["p90_ms"] = (float(np.percentile(np.asarray(seconds) * 1e3, 90))
+                     if len(seconds) >= P99_MIN_N else None)
+    return out
+
+
+def split_ms(stages: dict, keys) -> str:
+    return " ".join(f"{k} {stages.get(k, 0.0) * 1e3:.1f}" for k in keys)
+
+
+def crossover_split(sizes, device_min: int) -> tuple[int, int]:
+    """(batches at or above the crossover, batches under it)."""
+    above = sum(n >= device_min for n in sizes)
+    return above, len(sizes) - above
+
+
+def tcp_run(nl, api, kernels, side, validating, work, profile=False):
+    """One burst of the workload through three port Nodes over localhost
+    TCP and sqlite (fresh stores, seeded identities), every node's
+    verifier NODE_KINDS[side]; the card's launches counted from 0 after
+    the nodes' warm-up."""
+    base = tempfile.mkdtemp(prefix="cts_node")
+    nodes = ()
+    try:
+        nodes = nl.make_tcp_nodes(api, base, NODE_KINDS[side], validating)
+        if work is None:
+            work = nl.build_workload(api, *nodes, NOTARY_N, NOTARY_BAD,
+                                     NOTARY_DOUBLE, NOTARY_SEED)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with device_trace(profile) as prof:
+            res = nl.run_tcp_workload(api, *nodes, work)
+            torch.cuda.synchronize()
+        res["launches"] = dict(kernels.LAUNCHES)
+        if prof is not None:
+            res["device_busy_ms"], res["traced_verify_launches"] = \
+                device_busy_ms(prof)
+        return res, work
+    finally:
+        for node in nodes:
+            node.stop()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def tcp_summary(res) -> dict:
+    n = NOTARY_N
+    notary = res["nodes"]["Notary"]
+    return {
+        "notarisations_s": res["notarised"] / res["wall_s"],
+        "wall_ms": res["wall_s"] * 1e3,
+        "latency": percentiles_ms(res["flow_s"][:n]),
+        "second_spends": percentiles_ms(res["flow_s"][n:]),
+        "notary_round_stage_s": notary["round_stage_s"],
+        "notary_round_phase_s": notary["round_phase_s"],
+        "nodes": {k: {f: v[f] for f in (
+            "verify_batches", "verify_sigs", "device_batches",
+            "host_batches", "largest_batch", "verify_s")}
+            for k, v in res["nodes"].items()},
+        "launches": res["launches"], "notarised": res["notarised"],
+        "committed_count": res["committed_count"],
+    }
+
+
+def check_tcp_runs(nl, key, runs, work, device_min):
+    """Phase 21 (a)'s checks over one configuration's four runs."""
+    want = nl.expected_outcomes(work)
+    host = runs["host"][0]
+    kinds = [o[:1] if o[0] == "ok" else o for o in host["outcomes"]]
+    check(kinds == want, f"node {key}: host outcomes differ from the "
+          "workload's (flipped signatures refused, second spends "
+          "conflicting, the rest notarised)")
+    notarised_ids = {tx for tx, o in zip(host["tx_ids"], host["outcomes"])
+                     if o[0] == "ok"}
+    for res in runs["host"] + runs["card"]:
+        check(res["outcomes"] == host["outcomes"],
+              f"node {key}: outcomes or notary signature bytes differ "
+              "between runs")
+        check(res["committed"] == host["committed"]
+              and set(res["committed"].values()) == notarised_ids
+              and res["committed_count"] == res["notarised"]
+              == NOTARY_N - NOTARY_BAD,
+              f"node {key}: the committed inputs are not the notarised "
+              f"transactions' ({res['committed_count']} committed, "
+              f"{res['notarised']} notarised)")
+        for name, m in res["nodes"].items():
+            check(m["verify_device_degraded"] == 0,
+                  f"node {key}: {name} degraded its device tier")
+    for res in runs["card"]:
+        for name, m in res["nodes"].items():
+            above, under = crossover_split(m["batch_sizes"], device_min)
+            check(m["device_batches"] == above and m["host_batches"] == under,
+                  f"node {key}: {name}'s batches at or above the crossover "
+                  f"({above}) did not all take the card: device "
+                  f"{m['device_batches']} host {m['host_batches']}")
+        check(res["launches"]["ed25519_verify"] > 0
+              and res["launches"]["sha512_challenge"] > 0
+              and sum(m["device_batches"] for m in res["nodes"].values())
+              == res["launches"]["ed25519_verify"],
+              f"node {key}: the card run's launches {res['launches']} are "
+              "not its device batches")
+
+
+def phase_node_tcp(nl, api, kernels, device_min, mock_res, card) -> dict:
+    """Phase 21 (a): the simple and the validating burst through three port
+    Nodes in this process over localhost TCP, card, host, host, card."""
+    out, works = {}, {}
+    for validating in (False, True):
+        key = f"{'validating' if validating else 'simple'}-burst"
+        runs = {"card": [], "host": []}
+        t0 = time.perf_counter()
+        for side in NODE_TURNS:
+            res, works[validating] = tcp_run(nl, api, kernels, side,
+                                             validating,
+                                             works.get(validating))
+            runs[side].append(res)
+        check_tcp_runs(nl, key, runs, works[validating], device_min)
+        out[key] = {side: [tcp_summary(r) for r in rs]
+                    for side, rs in runs.items()}
+        out[key]["under_crossover_host_batches"] = [
+            sum(crossover_split(m["batch_sizes"], device_min)[1]
+                for m in r["nodes"].values()) for r in runs["card"]]
+        out[key]["seconds"] = time.perf_counter() - t0
+        for side in ("card", "host"):
+            for r in out[key][side]:
+                lat = r["latency"]
+                log(f"{card} | node tcp {key} {side}: "
+                    f"{r['notarisations_s']:.1f} notarisations/s; flow p50 "
+                    f"{ms_or_na(lat['p50_ms'])} ms p99 "
+                    f"{ms_or_na(lat['p99_ms'])} ms max "
+                    f"{ms_or_na(lat['max_ms'])} ms over {lat['n']}; wall "
+                    f"{r['wall_ms']:.1f} ms; notary round_stage_s ms "
+                    + split_ms(r["notary_round_stage_s"],
+                               ("pump", "verify", "checkpoint", "commit"))
+                    + f" over {r['notary_round_stage_s'].get('rounds', 0)} "
+                    "rounds; round_phase_s ms "
+                    + split_ms(r["notary_round_phase_s"],
+                               ("poll", "verify_wait", "apply", "reply",
+                                "wall"))
+                    + "; nodes " + "; ".join(
+                        f"{k} {v['verify_batches']} batches (device "
+                        f"{v['device_batches']} host {v['host_batches']})"
+                        for k, v in r["nodes"].items())
+                    + f"; launches verify {r['launches']['ed25519_verify']} "
+                    f"challenge {r['launches']['sha512_challenge']} "
+                    f"sha256_many {r['launches']['sha256_many']}")
+        mock = mock_res.get(key, {})
+        for side in ("card", "host"):
+            log(f"{card} | node {key} {side}, same call: MockNetwork "
+                "(phase 20) " + ", ".join(
+                    f"{r['notarisations_s']:.1f}/s p99 "
+                    f"{ms_or_na(r['latency']['p99_ms'])} ms"
+                    for r in mock.get(side, []))
+                + " | TCP + sqlite " + ", ".join(
+                    f"{r['notarisations_s']:.1f}/s p99 "
+                    f"{ms_or_na(r['latency']['p99_ms'])} ms"
+                    for r in out[key][side]))
+        log(f"{card} | node tcp {key}: checks passed (outcomes and "
+            "signatures = host, committed inputs = the notarised "
+            "transactions, every batch at or above the crossover on the "
+            "card, no degrade); batches under the crossover on the host "
+            f"by design: {out[key]['under_crossover_host_batches']}; "
+            f"{out[key]['seconds']:.1f} s")
+    prof_res, _ = tcp_run(nl, api, kernels, "card", False, works[False],
+                          profile=True)
+    busy = prof_res["device_busy_ms"]
+    wall = prof_res["wall_s"] * 1e3
+    idle = None if busy is None else 1 - busy / wall
+    log(f"{card} | node tcp simple-burst card under torch.profiler: wall "
+        f"{wall:.1f} ms, device busy "
+        + ("not measured (no device activity traced)" if busy is None else
+           f"{busy:.3f} ms ({prof_res['traced_verify_launches']} verify "
+           f"kernel launches traced) -> device idle {idle:.4f} of this "
+           "run's wall"))
+    out["profiled_simple_burst"] = {
+        "wall_ms": wall, "device_busy_ms": busy,
+        "traced_verify_launches": prof_res["traced_verify_launches"],
+        "device_idle_share": idle}
+    out["launches"] = {key: out[key]["card"][0]["launches"]
+                       for key in ("simple-burst", "validating-burst")}
+    return out
+
+
+def batches_by_size(ops) -> dict:
+    """The node's verify batches by size (the verify_batch_sigs
+    histogram: bucket i holds batches of 2**(i-1) .. 2**i - 1 signatures)."""
+    snap = ops.call("telemetry_snapshot")["snapshot"]
+    return {int(k): v for k, v in
+            snap["histograms"]["verify_batch_sigs"]["buckets"].items()}
+
+
+def tier_counts(metrics: dict) -> dict:
+    return {"batches": metrics["verify_batches"],
+            "device": metrics["verify_device_batches"] or 0,
+            "host": metrics["verify_host_batches"] or 0,
+            "degraded": metrics["verify_device_degraded"]}
+
+
+def ladder_session(nl, driver_mod, side, max_wait, device_min, card):
+    """Phase 21 (b), one notary configuration: a Notary process (simple)
+    and an Alice process, both through ``python -m
+    corda_tpu_torch.node.node``, each on the verifier its placement picks
+    ("torch" on the card for "card", "cpu" for "host"), then the open-loop
+    ladder through Alice's RPC."""
+    base = tempfile.mkdtemp(prefix="cts_ladder")
+    device = "accelerator" if side == "card" else "cpu"
+    extra = f"[batch]\nmax_sigs = 4096\nmax_wait_ms = {max_wait}\n"
+    rows, t0 = [], time.perf_counter()
+    clients = []
+    try:
+        with driver_mod.driver(base) as d:
+            notary = d.start_node("Notary", notary="simple",
+                                  cordapps=(DEMO_CORDAPP,), rpc=True,
+                                  device=device, extra_toml=extra)
+            alice = d.start_node("Alice", cordapps=(DEMO_CORDAPP,),
+                                 rpc=True, device=device,
+                                 extra_toml=extra)
+            boot_s = time.perf_counter() - t0
+            client = alice.rpc("demo", "s3cret", timeout=60.0)
+            clients.append(client)
+            ops = {"Notary": notary.rpc("demo", "s3cret", timeout=60.0),
+                   "Alice": client}
+            clients.append(ops["Notary"])
+            deadline = time.monotonic() + 30
+            while "Notary" not in {n.legal_identity.name for n in
+                                   client.call("network_map_snapshot")}:
+                check(time.monotonic() < deadline,
+                      "node ladder: Alice never saw the notary")
+                time.sleep(0.1)
+            # The flow path's first use (lazy imports, first codec and
+            # checkpoint work) is paid before the ladder, untimed.
+            warm = nl.run_open_loop(client, LADDER_RATES[0], LADDER_WARM,
+                                    LADDER_FLOWS * len(LADDER_RATES) + 1)
+            check(all(x is not None for x in warm["latency_s"]),
+                  "node ladder: the warm-up flows did not finish")
+            magic = 1
+            notary_db = notary.base_dir / "node.db"
+            for rate in LADDER_RATES:
+                before = {k: (tier_counts(o.call("node_metrics")),
+                              batches_by_size(o)) for k, o in ops.items()}
+                committed_before = nl.committed_inputs_at(notary_db)
+                run = nl.run_open_loop(client, rate, LADDER_FLOWS, magic)
+                magic += LADDER_FLOWS
+                # What the notary committed in this rung: its sqlite commit
+                # log's new rows, each naming the move that consumed it.
+                new_ids = {v.hex() for k, v in
+                           nl.committed_inputs_at(notary_db).items()
+                           if k not in committed_before}
+                returned = [r for r in run["results"] if isinstance(r, str)
+                            and len(r) == 64
+                            and all(c in "0123456789abcdef" for c in r)]
+                row = {"rate_tx_s": rate, "tx_per_sec": run["tx_per_sec"],
+                       "start_lag_ms": run["start_lag_s"] * 1e3,
+                       "latency": percentiles90_ms(
+                           [x for x in run["latency_s"] if x is not None]),
+                       "committed": len(new_ids),
+                       "returned_ids": len(returned),
+                       "unfinished": sum(x is None
+                                         for x in run["latency_s"])}
+                check(len(returned) == LADDER_FLOWS
+                      and row["unfinished"] == 0,
+                      f"node ladder {side} {max_wait} ms {rate} tx/s: "
+                      f"{len(returned)} of {LADDER_FLOWS} flows returned "
+                      f"a 64-hex id ({row['unfinished']} unfinished): "
+                      f"{[r for r in run['results'] if r not in returned][:3]}")
+                check(new_ids == set(returned),
+                      f"node ladder {side} {max_wait} ms {rate} tx/s: the "
+                      f"notary committed {len(new_ids)} moves, "
+                      f"{len(new_ids & set(returned))} of them among the "
+                      f"{len(returned)} ids the flows returned")
+                for k, o in ops.items():
+                    m = o.call("node_metrics")
+                    tiers = tier_counts(m)
+                    sizes = batches_by_size(o)
+                    d_t = {f: tiers[f] - before[k][0][f] for f in tiers}
+                    above = sum(v - before[k][1].get(i, 0)
+                                for i, v in sizes.items()
+                                if (1 << (i - 1) if i else 0) >= device_min)
+                    d_t["at_or_above_crossover"] = above
+                    d_t["backend"] = m["kernel_backend"]
+                    row[k] = d_t
+                    if side == "card":
+                        check(d_t["device"] == above
+                              and d_t["host"] == d_t["batches"] - above
+                              and d_t["degraded"] == 0,
+                              f"node ladder {side} {max_wait} ms {rate} "
+                              f"tx/s: {k}'s batches at or above the "
+                              f"crossover ({above}) did not all take the "
+                              f"card: {d_t}")
+                rows.append(row)
+                lat = row["latency"]
+                log(f"{card} | node ladder {side} max_wait {max_wait:g} ms "
+                    f"{rate:g} tx/s offered: p50 {ms_or_na(lat['p50_ms'])} "
+                    f"p90 {ms_or_na(lat['p90_ms'])} p99 "
+                    f"{ms_or_na(lat['p99_ms'])} max "
+                    f"{ms_or_na(lat['max_ms'])} ms over {lat['n']}; "
+                    f"{row['tx_per_sec']:.1f} tx/s achieved (last request "
+                    f"sent {row['start_lag_ms']:.1f} ms behind schedule); "
+                    f"committed {row['committed']}; " + "; ".join(
+                        f"{k} batches {row[k]['batches']} (device "
+                        f"{row[k]['device']} host {row[k]['host']}, "
+                        f"{row[k]['at_or_above_crossover']} at or above "
+                        f"{device_min}) backend {row[k]['backend']}"
+                        for k in ops))
+            stamp = ops["Notary"].call("node_metrics")["kernel_backend"]
+            if side == "card":
+                check(stamp == "cuda", f"node ladder: the notary process's "
+                      f"backend stamp is {stamp!r}, not 'cuda'")
+            for c in clients:
+                c.close()
+            clients = []
+            notary.process.terminate()
+            rc = notary.process.wait(timeout=60)
+            check(rc == 0, f"node ladder: the notary process exited {rc}")
+        return {"side": side, "max_wait_ms": max_wait, "boot_s": boot_s,
+                "rows": rows, "notary_backend": stamp, "notary_exit": rc,
+                "seconds": time.perf_counter() - t0}
+    finally:
+        for c in clients:
+            c.close()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def phase_node(provider, kernels, mock_res, card):
+    """Phase 21: the production node over TCP on the card. (a) In process:
+    three port Nodes (Notary, Alice, Bob) over localhost TCP, each on its
+    own sqlite with a seeded identity, round-robin run_once with [batch]
+    max_sigs 4096, max_wait_ms 2.0 and the async verify pump on; phase
+    20's workload (1,000 moves, 10 with a flipped signature byte, 5 second
+    spends) to a simple and to a validating notary, one burst each, every
+    node on verifier "torch" (card) and "cpu" (host) in the turns card,
+    host, host, card; one more simple card burst under torch.profiler.
+    (b) Real processes through ``python -m corda_tpu_torch.node.node``,
+    spawned by the port's driver: a simple Notary and Alice, both on
+    "torch" on the card and then both on "cpu" (in the simple notary's
+    flow every signature check is Alice's: the notary verifies none), the
+    reference's open-loop ladder through Alice's RPC
+    (IssueAndNotariseFlow), each latency from the flow's scheduled start
+    to the change feed's report of its end, at max_wait_ms 2 and 20."""
+    from corda_tpu_torch.testing import driver as driver_mod
+    from corda_tpu_torch.testing import notary_load as nl
+
+    device_min = provider.DEVICE_MIN_SIGS_DEFAULT
+    check(device_min == 4, f"the crossover is {device_min}, not 4: the "
+          "histogram split below assumes a power of two")
+    api = nl.port_api()
+    t0 = time.perf_counter()
+    out = {"in_process": phase_node_tcp(nl, api, kernels, device_min,
+                                        mock_res, card)}
+    out["in_process_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["ladder"] = [ladder_session(nl, driver_mod, side, max_wait,
+                                    device_min, card)
+                     for side in ("card", "host")
+                     for max_wait in LADDER_WAITS]
+    out["ladder_s"] = time.perf_counter() - t1
+    log(f"{card} | phase 21 seconds: in process {out['in_process_s']:.1f}, "
+        f"processes {out['ladder_s']:.1f} ("
+        + ", ".join(f"{s['side']} {s['max_wait_ms']:g} ms {s['seconds']:.1f}"
+                    f" incl. boot {s['boot_s']:.1f}" for s in out["ladder"])
+        + ")")
     return out
 
 
@@ -2693,7 +3102,10 @@ def main() -> int:
     # 20. the notary: flows, the verify pump and the in-memory network
     notary_res = phase_notary(provider, kernels, async_verify, faults, card)
 
-    # 21. kernels line
+    # 21. the production node over TCP: in process, then real processes
+    node_res = phase_node(provider, kernels, notary_res, card)
+
+    # 22. kernels line
     bound1, by1 = bound_ms(N_MAIN * VERIFY_BYTES,
                            main_res["verify_least_int_ops"])
     bound2, by2 = bound_ms(N_MAIN * CHALLENGE_BYTES,
@@ -2764,7 +3176,7 @@ def main() -> int:
               "adaptive_coalesce": adaptive_res, "verify_pump": pump_res,
               "batch_sign": sign_res, "resolve": resolve_res,
               "hash_crossover": hash_cross, "sha256_oversize": oversize_res,
-              "notary": notary_res,
+              "notary": notary_res, "node": node_res,
               "ptxas": {s: ptxas_summary(_build, s) for s in _build.SOURCES},
               "sass_sha512_challenge": sass2,
               "challenge_least_int_ops": CHALLENGE_INT_OPS,

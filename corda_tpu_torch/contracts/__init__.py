@@ -1,7 +1,7 @@
 """L1 ledger data model: states, contracts, commands, transactions-for-contract.
 
-The port's copies of ``corda_tpu/contracts/structures.py`` and
-``verification.py``; the JAX package's ``dsl`` and the sandbox, clause and
+The port's copies of ``corda_tpu/contracts/structures.py``,
+``verification.py`` and ``dsl.py``; the JAX package's sandbox, clause and
 universal-contract modules are not ported yet (ROADMAP.md).
 """
 

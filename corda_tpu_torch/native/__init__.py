@@ -2,8 +2,10 @@
 
 Counterpart of ``corda_tpu/native/__init__.py`` for ``_cverify.c`` (batched
 libcrypto verify and signing and the device-hash word packer, GIL
-released) and ``_ccodec.c`` (the canonical codec's decode/encode core,
-wired in by serialization/codec.py). Each source compiles with ``gcc``
+released), ``_ccodec.c`` (the canonical codec's decode/encode core,
+wired in by serialization/codec.py) and ``_ccommit.c`` (batched CRC32C of
+the commit path's integrity frames, wired in by
+node/services/integrity.py). Each source compiles with ``gcc``
 against the interpreter's ``Python.h`` (and, for ``_cverify``, the
 installed libcrypto) into ``build/corda_tpu_torch/native/<sha256 of the
 source>/``, through a temp name and ``os.replace``, so processes that
@@ -122,6 +124,13 @@ def load_ccodec():
     """The native codec decode/encode core (``_ccodec.c``), or None when
     it cannot be built here."""
     return _load_native("_ccodec")
+
+
+def load_ccommit():
+    """The batched CRC32C integrity-frame core (``_ccommit.c``), or None
+    when it cannot be built here (integrity.py then runs its Python
+    CRC32C, bit for bit the same)."""
+    return _load_native("_ccommit")
 
 
 def pack_backend() -> str:

@@ -13,11 +13,18 @@ package the hooks fire from:
 * ``verify.device`` -- the AsyncVerifyService feeder thread: fail, slow,
   crash;
 * ``checkpoint.write`` -- SMM ``_write_checkpoint`` (:func:`fire_fsync`):
-  fail, stall, crash.
+  fail, stall, crash;
+* ``transport.send`` / ``transport.recv`` / ``transport.partition`` --
+  also tcp ``send`` / ``send_many`` / ``_dispatch``;
+* ``netmap.refresh`` -- Node ``refresh_netmap``: drop, stall, crash;
+* ``disk.corrupt`` -- the checkpoint restore read
+  (:func:`fire_disk_corrupt`): flip (a seeded bit-flip on read);
+* ``disk.full`` -- the uniqueness provider's commit
+  (:func:`fire_disk_full`): full, stall, crash.
 
-The reference's disk-corrupt and disk-full hooks and its builtin plans wait
-for the persistence slice (ROADMAP.md); their points stay in ``POINTS`` so
-plan files validate the same in both packages.
+The reference's builtin plans wait for the loadtest slice (ROADMAP.md);
+the raft and reshard points stay in ``POINTS`` so plan files validate the
+same in both packages.
 
 A process arms at most one :class:`FaultPlan`.  A hook consults the
 module-level ``ACTIVE`` plan; when no plan is armed the hook is a single
@@ -76,6 +83,8 @@ __all__ = [
     "injected",
     "fire",
     "fire_fsync",
+    "fire_disk_corrupt",
+    "fire_disk_full",
     "fire_partition",
     "partitioned",
     "bind_partition_nodes",
@@ -395,6 +404,50 @@ def fire_fsync(point: str) -> None:
         time.sleep(delay_s)
     elif action in ("fail", "raise"):
         raise OSError(f"fault injected: {point} failure")
+
+
+def fire_disk_corrupt(blob: bytes) -> bytes:
+    """Hook body for ``disk.corrupt``: when a rule fires, return *blob*
+    with ONE deterministically-chosen bit flipped (models media bitrot on
+    a read path — the stored bytes are untouched, so detection + truncate
+    + re-replication genuinely recovers).  The flipped position derives
+    from the plan seed and the point's event count, so two runs of the
+    same plan corrupt the same reads identically."""
+    plan = ACTIVE
+    if plan is None or not blob:
+        return blob
+    act = plan.fire("disk.corrupt")
+    if act is None:
+        return blob
+    action, _delay_s = act
+    if action not in ("flip", "corrupt"):
+        return blob
+    with plan._lock:
+        event = plan.events.get("disk.corrupt", 0)
+    pos = random.Random(f"{plan.seed}:disk.corrupt:bit:{event}").randrange(
+        len(blob) * 8)
+    flipped = bytearray(blob)
+    flipped[pos // 8] ^= 1 << (pos % 8)
+    return bytes(flipped)
+
+
+def fire_disk_full() -> None:
+    """Hook body for ``disk.full``: ``full``/``fail`` raises the exact
+    OperationalError sqlite produces on disk exhaustion (so catch sites
+    exercise the same string-match they use in production), ``stall``
+    sleeps."""
+    plan = ACTIVE
+    if plan is None:
+        return
+    act = plan.fire("disk.full")
+    if act is None:
+        return
+    action, delay_s = act
+    if action == "stall" and delay_s > 0:
+        time.sleep(delay_s)
+    elif action in ("full", "fail"):
+        import sqlite3
+        raise sqlite3.OperationalError("database or disk is full")
 
 
 def plan_from_toml(text: str, node_name: str | None = None) -> FaultPlan:

@@ -15,16 +15,28 @@ flow's time from ``start_flow`` to its result, the committed input set,
 and per node the state machine's verify counts, its largest batch and the
 time spent inside ``verify_batch``.
 
+The same workload runs over real nodes: ``make_tcp_nodes`` boots the
+notary, Alice and Bob as ``Node``s over localhost TCP, each on its own
+sqlite with an identity seeded from its name (so every run, in either
+package, has the same keys), and ``run_tcp_workload`` drives them with a
+round-robin ``run_once`` as the scheduler. ``run_open_loop`` starts a flow
+through RPC on a fixed schedule, whatever completes, and times each from
+its scheduled start to the change feed's report of its end.
+
 Everything here is passed the package it drives (``api``: ``MockNetwork``,
-``DummyContract`` and ``NotaryClientFlow``), so the same workload runs in
-this package and in any other with the same classes; ``port_api()`` gives
-this package's own.
+``DummyContract`` and ``NotaryClientFlow``; for nodes also ``Node``,
+``NodeConfig`` and ``NodeDatabase``), so the same
+workload runs in this package and in any other with the same classes;
+``port_api()`` gives this package's own.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import sqlite3
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -33,13 +45,18 @@ NODE_NAMES = ("Notary", "Alice", "Bob")
 
 
 def port_api() -> SimpleNamespace:
-    """This package's MockNetwork, DummyContract and NotaryClientFlow."""
+    """This package's MockNetwork, DummyContract, NotaryClientFlow, Node,
+    NodeConfig and NodeDatabase."""
     from ..flows.notary import NotaryClientFlow
+    from ..node.config import NodeConfig
+    from ..node.node import Node
+    from ..node.services.persistence import NodeDatabase
     from .dummies import DummyContract
     from .mock_network import MockNetwork
 
     return SimpleNamespace(MockNetwork=MockNetwork, DummyContract=DummyContract,
-                           NotaryClientFlow=NotaryClientFlow)
+                           NotaryClientFlow=NotaryClientFlow, Node=Node,
+                           NodeConfig=NodeConfig, NodeDatabase=NodeDatabase)
 
 
 class TimedVerifier:
@@ -232,6 +249,221 @@ def run_workload(api, net, notary, alice, bob, workload: Workload,
         "committed": committed,
         "committed_count": notary.uniqueness_provider.committed_count,
         "nodes": nodes,
+    }
+
+
+def node_seed(name: str) -> bytes:
+    """The identity seed of the node ``name`` in every TCP run."""
+    return hashlib.sha256(b"notary-load:" + name.encode()).digest()
+
+
+def make_tcp_nodes(api, base_dir, verifier: str, validating: bool) -> tuple:
+    """(notary, alice, bob): started ``Node``s over localhost TCP under
+    ``base_dir``, sharing one netmap file, each with ``verifier`` (a config
+    kind) and the default ``[batch]`` policy (max_sigs 4096, max_wait_ms
+    2.0, the async verify pump on). Each
+    node's identity is seeded (``node_seed``) through its database before
+    the node opens it. Each state machine's verifier, and the async pump's,
+    is wrapped in a TimedVerifier."""
+    base_dir = Path(base_dir)
+    nodes = []
+    for name in NODE_NAMES:
+        node_dir = base_dir / name
+        node_dir.mkdir(parents=True, exist_ok=True)
+        db = api.NodeDatabase(node_dir / "node.db")
+        db.load_or_create_identity(name, node_seed(name))
+        db.close()
+        notary = ("none" if name != NODE_NAMES[0] else
+                  "validating" if validating else "simple")
+        nodes.append(api.Node(api.NodeConfig(
+            name=name, base_dir=node_dir, port=0, notary=notary,
+            network_map=base_dir / "netmap.json",
+            verifier=verifier)).start())
+    for node in nodes:
+        node.refresh_netmap()
+        timed = TimedVerifier(node.smm.verifier)
+        node.smm.verifier = timed
+        if node.smm.async_verify is not None:
+            node.smm.async_verify.verifier = timed
+    return tuple(nodes)
+
+
+def pump_nodes(nodes, done, timeout_s: float = 300.0,
+               round_timeout_s: float = 0.001) -> None:
+    """Round-robin ``run_once`` over ``nodes`` until ``done()``; raises
+    AssertionError after ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    while not done():
+        if time.monotonic() > deadline:
+            raise AssertionError("the nodes did not settle")
+        for node in nodes:
+            node.run_once(timeout=round_timeout_s)
+
+
+_COMMITTED_SQL = "SELECT state_ref, consuming FROM committed_states"
+
+
+def committed_inputs(node) -> dict:
+    """{(txhash bytes, index): consuming tx id bytes} from the notary's
+    sqlite commit log."""
+    with node.db.lock:
+        rows = node.db.conn.execute(_COMMITTED_SQL).fetchall()
+    return _decode_committed(rows)
+
+
+def committed_inputs_at(db_path) -> dict:
+    """``committed_inputs`` of a notary running in another process, read
+    from its sqlite file through a read-only connection (WAL lets it read
+    beside the node's writer)."""
+    conn = sqlite3.connect(f"file:{db_path}?mode=ro", uri=True, timeout=30.0)
+    try:
+        rows = conn.execute(_COMMITTED_SQL).fetchall()
+    finally:
+        conn.close()
+    return _decode_committed(rows)
+
+
+def _decode_committed(rows) -> dict:
+    from ..serialization.codec import deserialize
+
+    out = {}
+    for ref_blob, consuming_blob in rows:
+        ref = deserialize(bytes(ref_blob))
+        out[(bytes(ref.txhash.bytes), ref.index)] = bytes(
+            deserialize(bytes(consuming_blob)).id.bytes)
+    return out
+
+
+def _stage_delta(after: dict | None, before: dict | None) -> dict:
+    after, before = after or {}, before or {}
+    return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
+def run_tcp_workload(api, notary, alice, bob, workload: Workload,
+                     timeout_s: float = 300.0) -> dict:
+    """``run_workload`` over TCP nodes from ``make_tcp_nodes``: the moves
+    in one burst, then the second spends, each round pumped until every
+    flow has its result. The record adds, per node, the verifier's device
+    and host batches, every batch size, and the run's ``round_stage_s``
+    and ``round_phase_s``."""
+    nodes = (notary, alice, bob)
+    stxs = workload.moves + workload.doubles
+    starts = [0.0] * len(stxs)
+    ends = [0.0] * len(stxs)
+    alice.services.record_transactions(workload.issues)
+    before = {n.config.name: (dict(n.smm.metrics.get("round_stage_s", {})),
+                              dict(n.smm.metrics.get("round_phase_s", {})))
+              for n in nodes}
+    handles = [None] * len(stxs)
+    t0 = time.perf_counter()
+    for r in (range(len(workload.moves)),
+              range(len(workload.moves), len(stxs))):
+        for k in r:
+            handles[k] = _start(api, alice, stxs[k], starts, ends, k)
+        pump_nodes(nodes, lambda r=r: all(handles[k].result.done for k in r),
+                   timeout_s)
+    wall_s = time.perf_counter() - t0
+    outcomes = [outcome_of(h) for h in handles]
+    per_node = {}
+    for node in nodes:
+        timed = node.smm.verifier
+        stage0, phase0 = before[node.config.name]
+        per_node[node.config.name] = {
+            "verify_batches": node.smm.metrics["verify_batches"],
+            "verify_sigs": node.smm.metrics["verify_sigs"],
+            "verify_device_degraded":
+                node.smm.metrics["verify_device_degraded"],
+            "device_batches": getattr(timed, "device_batches", 0) or 0,
+            "host_batches": getattr(timed, "host_batches", 0) or 0,
+            "batch_sizes": list(timed.sizes),
+            "largest_batch": max(timed.sizes, default=0),
+            "verify_s": timed.seconds,
+            "round_stage_s": _stage_delta(
+                node.smm.metrics.get("round_stage_s"), stage0),
+            "round_phase_s": _stage_delta(
+                node.smm.metrics.get("round_phase_s"), phase0),
+        }
+    return {
+        "outcomes": outcomes,
+        "tx_ids": [bytes(s.id.bytes) for s in stxs],
+        "flow_s": [e - s for s, e in zip(starts, ends)],
+        "wall_s": wall_s,
+        "verify_s": sum(v["verify_s"] for v in per_node.values()),
+        "notarised": sum(o[0] == "ok" for o in outcomes),
+        "committed": committed_inputs(notary),
+        "committed_count": notary.uniqueness_provider.committed_count,
+        "nodes": per_node,
+    }
+
+
+def run_open_loop(client, rate_tx_s: float, n: int, first_magic: int,
+                  flow: str = "IssueAndNotariseFlow",
+                  timeout_s: float = 120.0) -> dict:
+    """Start ``n`` ``flow(first_magic + i)`` through the RPC ``client`` at
+    ``rate_tx_s``, open loop: flow i's request is sent at its scheduled
+    time (or as soon after as the client gets to it) without waiting for
+    any reply. A flow's latency runs from its scheduled start to the
+    change feed's ("remove", run_id) push. Returns the latencies in
+    seconds (start order; None for a flow that did not finish), each
+    flow's result (its value, or the RpcError text), the achieved tx/s
+    (finished flows over the span from the first scheduled start to the
+    last end) and how far behind schedule the last request was sent."""
+    from ..node.rpc import RpcError
+
+    done_at: dict = {}
+
+    def on_changes(events, _cursor):
+        now = time.perf_counter()
+        for event in events:
+            if event[0] == "remove":
+                done_at.setdefault(bytes(event[1]), now)
+
+    client.subscribe_changes(on_changes)
+    t0 = time.perf_counter() + 0.05
+    schedule = [t0 + i / rate_tx_s for i in range(n)]
+    run_ids: list = [None] * n
+    results: list = [None] * n
+    pending: dict = {}  # request id -> flow index
+    sent, start_lag_s = 0, 0.0
+    deadline = schedule[-1] + timeout_s
+    while (sent < n or pending) and time.perf_counter() < deadline:
+        now = time.perf_counter()
+        if sent < n and now >= schedule[sent]:
+            start_lag_s = now - schedule[sent]
+            pending[client.submit("start_flow_dynamic", flow,
+                                  (first_magic + sent,))] = sent
+            sent += 1
+            continue
+        client.poll_push(timeout=min(0.001, schedule[sent] - now)
+                         if sent < n else 0.005)
+        for request_id in list(pending):
+            try:
+                done, info = client.take_reply(request_id)
+            except RpcError as e:
+                results[pending.pop(request_id)] = f"RpcError: {e}"
+                continue
+            if done:
+                run_ids[pending.pop(request_id)] = bytes(info.run_id)
+    while (any(r is not None and r not in done_at for r in run_ids)
+           and time.perf_counter() < deadline):
+        client.poll_push(timeout=0.005)
+    for k, run_id in enumerate(run_ids):
+        if run_id is None:
+            continue
+        try:
+            done, value = client.call("flow_result", run_id)
+            results[k] = value if done else None
+        except RpcError as e:
+            results[k] = f"RpcError: {e}"
+    ends = [done_at.get(r) if r is not None else None for r in run_ids]
+    finished = [e for e in ends if e is not None]
+    return {
+        "latency_s": [None if e is None else e - s
+                      for s, e in zip(schedule, ends)],
+        "results": results,
+        "tx_per_sec": (len(finished) / (max(finished) - t0)
+                       if finished else 0.0),
+        "start_lag_s": start_lag_s,
     }
 
 

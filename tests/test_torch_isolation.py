@@ -7,7 +7,8 @@ A fresh interpreter then imports the port, verifies a 64-lane batch on the
 CPU through the device path's plain versions and through the host tier,
 primes the ids of a small transaction wave through the SHA-256 kernel's
 plain version, notarises through the port's MockNetwork with both notary
-kinds, and must end with neither jax nor corda_tpu loaded.
+kinds and through three port ``Node``s over localhost TCP and sqlite, and
+must end with neither jax nor corda_tpu loaded.
 """
 
 import ast
@@ -50,8 +51,9 @@ def test_no_jax_or_corda_tpu_imports(path):
     assert not _imported_roots(path) & FORBIDDEN
 
 
-# The notary path's modules (each a copy of the JAX package's module of the
-# same path, or a cut of it): all are among the files checked above.
+# The notary path's modules and the node slice's (each a copy of the JAX
+# package's module of the same path, or a cut of it): all are among the
+# files checked above.
 NOTARY_PATH_MODULES = [
     "utils/clock.py", "utils/progress.py", "qos/__init__.py",
     "qos/context.py", "qos/admission.py", "qos/calibrate.py",
@@ -65,6 +67,14 @@ NOTARY_PATH_MODULES = [
     "node/services/raft.py", "node/services/sharding.py",
     "node/statemachine.py", "testing/mock_network.py", "testing/faults.py",
     "testing/notary_load.py",
+    "native/__init__.py", "node/__init__.py", "node/node.py",
+    "node/config.py", "node/rpc.py", "node/messaging/tcp.py",
+    "node/services/integrity.py", "node/services/persistence.py",
+    "node/services/schema.py", "node/services/scheduler.py",
+    "node/services/vault_observers.py", "contracts/dsl.py",
+    "finance/__init__.py", "finance/amount.py", "finance/on_ledger_asset.py",
+    "finance/cash.py", "tools/__init__.py", "tools/fsck.py",
+    "tools/demo_cordapp.py", "testing/driver.py",
 ]
 
 
@@ -126,6 +136,19 @@ for validating in (False, True):
     assert kinds == nl.expected_outcomes(work), kinds
     assert res["committed_count"] == res["notarised"] == 3
     net.stop_nodes()
+# One notarisation through port Nodes over localhost TCP and sqlite.
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    n, a, b = nl.make_tcp_nodes(api, tmp, "cpu", validating=False)
+    try:
+        work = nl.build_workload(api, n, a, b, 2, 0, 1, 3)
+        res = nl.run_tcp_workload(api, n, a, b, work, timeout_s=60.0)
+        assert [o[0] for o in res["outcomes"]] == ["ok", "ok",
+                                                   "NotaryException"], res
+        assert res["committed_count"] == 2
+    finally:
+        for node in (n, a, b):
+            node.stop()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu"))
 assert not bad, bad

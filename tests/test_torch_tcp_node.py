@@ -1,0 +1,680 @@
+"""The port's node over real localhost TCP sockets + sqlite, on the CPU.
+
+The port's mirror of ``tests/test_tcp_node.py`` (every test but the mutual
+TLS one, whose certificate maker is not ported: here ``tls = true`` must
+raise): each port ``Node`` owns its own sqlite file and TCP listener, runs
+``verifier = "cpu"`` (the port's default, ``"torch"``, needs the card) and
+the test round-robins ``run_once()`` as the scheduler. Every wait is
+bounded by its own timeout.
+"""
+
+import time
+
+import pytest
+
+from corda_tpu_torch.flows.notary import NotaryClientFlow, NotaryException
+from corda_tpu_torch.node.config import BatchConfig, NodeConfig
+from corda_tpu_torch.node.node import Node
+from corda_tpu_torch.testing.dummies import DummyContract
+
+
+def make_node(tmp_path, name, notary="none", netmap="netmap.json", **kw):
+    config = NodeConfig(
+        name=name,
+        base_dir=tmp_path / name,
+        port=0,
+        notary=notary,
+        network_map=tmp_path / netmap,
+        verifier=kw.pop("verifier", "cpu"),
+        batch=BatchConfig(max_sigs=kw.pop("max_sigs", 4096),
+                          max_wait_ms=kw.pop("max_wait_ms", 2.0)),
+        **kw,
+    )
+    return Node(config).start()
+
+
+def pump_until(nodes, predicate, timeout=15.0):
+    """Round-robin run_once across nodes until predicate() or timeout.
+
+    Netmap refresh is throttled (as in production run_forever): re-reading
+    the file every iteration made each pump cycle slow enough to quantize
+    raft election timeouts to cycle boundaries — repeated split votes."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for node in nodes:
+            node.run_once(timeout=0.01)
+            node.refresh_netmap_maybe(every=0.2)
+        if predicate():
+            return
+    raise AssertionError("timed out waiting for network to settle")
+
+
+def issue_and_move(alice, notary_identity, magic=1):
+    builder = DummyContract.generate_initial(
+        alice.identity.ref(b"\x01"), magic, notary_identity)
+    builder.sign_with(alice.key)
+    issue_stx = builder.to_signed_transaction()
+    alice.services.record_transactions([issue_stx])
+    move = DummyContract.move(issue_stx.tx.out_ref(0),
+                              alice.identity.owning_key)
+    move.sign_with(alice.key)
+    return move.to_signed_transaction(check_sufficient_signatures=False)
+
+
+class TestTcpNotarisation:
+    def test_two_nodes_plus_notary_smoke(self, tmp_path):
+        notary = make_node(tmp_path, "Notary", notary="simple")
+        alice = make_node(tmp_path, "Alice")
+        bob = make_node(tmp_path, "Bob")
+        nodes = [notary, alice, bob]
+        try:
+            for n in nodes:
+                n.refresh_netmap()
+            stx = issue_and_move(alice, notary.identity)
+            handle = alice.start_flow(NotaryClientFlow(stx))
+            pump_until(nodes, lambda: handle.result.done)
+            sig = handle.result.result()
+            assert sig.by in notary.identity.owning_key.keys
+            sig.verify(stx.id.bytes)
+            assert notary.uniqueness_provider.committed_count == 1
+        finally:
+            for n in nodes:
+                n.stop()
+
+    def test_double_spend_rejected_across_tcp(self, tmp_path):
+        notary = make_node(tmp_path, "Notary", notary="simple")
+        alice = make_node(tmp_path, "Alice")
+        nodes = [notary, alice]
+        try:
+            for n in nodes:
+                n.refresh_netmap()
+            builder = DummyContract.generate_initial(
+                alice.identity.ref(b"\x01"), 5, notary.identity)
+            builder.sign_with(alice.key)
+            issue_stx = builder.to_signed_transaction()
+            alice.services.record_transactions([issue_stx])
+            prior = issue_stx.tx.out_ref(0)
+
+            m1 = DummyContract.move(prior, alice.identity.owning_key)
+            m1.sign_with(alice.key)
+            stx1 = m1.to_signed_transaction(check_sufficient_signatures=False)
+            m2 = DummyContract.move(prior, notary.identity.owning_key)
+            m2.sign_with(alice.key)
+            stx2 = m2.to_signed_transaction(check_sufficient_signatures=False)
+            assert stx1.id != stx2.id
+
+            h1 = alice.start_flow(NotaryClientFlow(stx1))
+            pump_until(nodes, lambda: h1.result.done)
+            h1.result.result()
+
+            h2 = alice.start_flow(NotaryClientFlow(stx2))
+            pump_until(nodes, lambda: h2.result.done)
+            with pytest.raises(NotaryException) as err:
+                h2.result.result()
+            assert "used in another transaction" in str(err.value)
+        finally:
+            for n in nodes:
+                n.stop()
+
+def test_notary_restart_new_process_semantics(tmp_path):
+    """Kill the notary node (drop every object), rebuild purely from its
+    base_dir, and verify (a) the commit log survived sqlite-durably and (b) a
+    notarisation started while it was down completes after rebirth (durable
+    outbox + bridge retry — store-and-forward across a peer restart)."""
+    notary = make_node(tmp_path, "Notary", notary="simple")
+    alice = make_node(tmp_path, "Alice")
+    survivors = [alice]
+    try:
+        for n in (notary, alice):
+            n.refresh_netmap()
+        stx = issue_and_move(alice, notary.identity, magic=9)
+        h = alice.start_flow(NotaryClientFlow(stx))
+        pump_until([notary, alice], lambda: h.result.done)
+        h.result.result()
+        assert notary.uniqueness_provider.committed_count == 1
+        notary_config = notary.config
+        notary_identity = notary.identity
+
+        # -- crash: drop every in-memory object -----------------------------
+        notary.stop()
+        del notary
+        time.sleep(0.05)
+
+        # While down, Alice fires a second notarisation; the send parks in
+        # her durable outbox and the bridge retries.
+        stx2 = issue_and_move(alice, notary_identity, magic=10)
+        h2 = alice.start_flow(NotaryClientFlow(stx2))
+        for _ in range(5):
+            alice.run_once(timeout=0.01)
+        assert not h2.result.done  # notary is down; flow is parked
+
+        # -- rebirth purely from the base_dir (fresh port; netmap updates) --
+        reborn = Node(NodeConfig(
+            name=notary_config.name,
+            base_dir=notary_config.base_dir,
+            port=0,
+            notary="simple",
+            network_map=notary_config.network_map,
+            verifier="cpu",
+        )).start()
+        survivors.append(reborn)
+        assert reborn.identity == notary_identity  # key survived on disk
+        assert reborn.uniqueness_provider.committed_count == 1  # log survived
+
+        pump_until([alice, reborn], lambda: h2.result.done)
+        sig2 = h2.result.result()
+        sig2.verify(stx2.id.bytes)
+        assert reborn.uniqueness_provider.committed_count == 2
+    finally:
+        for n in survivors:
+            n.stop()
+
+
+class TestKillAtStepSqlite:
+    """Kill-at-every-step re-run against the DURABLE stack: sqlite checkpoint
+    storage + TCP transport, with rebirth strictly from the base_dir (no
+    object hand-over — the new-process semantics VERDICT r1 asked for)."""
+
+    @pytest.mark.parametrize("crash_after", [1, 2, 3])
+    @pytest.mark.parametrize("victim", ["client", "notary"])
+    def test_crash_at_step(self, tmp_path, crash_after, victim):
+        notary = make_node(tmp_path, "Notary", notary="simple")
+        alice = make_node(tmp_path, "Alice")
+        nodes = {"notary": notary, "client": alice}
+        try:
+            for n in nodes.values():
+                n.refresh_netmap()
+            stx = issue_and_move(alice, notary.identity, magic=crash_after)
+            alice.start_flow(NotaryClientFlow(stx))
+
+            dispatched = 0
+            crashed = False
+            deadline = time.monotonic() + 20.0
+            while time.monotonic() < deadline:
+                for node in list(nodes.values()):
+                    dispatched += node.run_once(timeout=0.01)
+                if not crashed and dispatched >= crash_after:
+                    crashed = True
+                    dead = nodes[victim]
+                    config = dead.config
+                    dead.stop()
+                    del dead, nodes[victim]
+                    # Rebirth purely from disk.
+                    nodes[victim] = Node(NodeConfig(
+                        name=config.name,
+                        base_dir=config.base_dir,
+                        port=0,
+                        notary=config.notary,
+                        network_map=config.network_map,
+                        verifier="cpu",
+                    )).start()
+                if nodes["notary"].uniqueness_provider.committed_count == 1 \
+                        and not any(n.smm.flows for n in nodes.values()):
+                    break
+            assert crashed, "network settled before the crash point"
+            assert nodes["notary"].uniqueness_provider.committed_count == 1, (
+                f"crash_after={crash_after} victim={victim}: "
+                "protocol did not complete")
+        finally:
+            for n in nodes.values():
+                n.stop()
+
+
+class TestTlsTransport:
+    def test_tls_raises_until_x509_is_ported(self, tmp_path):
+        """The transport's mutual-TLS branch is copied, but its certificate
+        maker (crypto/x509.py) waits for a later slice: a node configured
+        with tls = true raises before it opens a store or a listener."""
+        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+            make_node(tmp_path, "Notary", notary="simple", tls=True)
+        assert not (tmp_path / "Notary").exists()
+
+
+class TestHostileSocket:
+    @pytest.mark.filterwarnings(
+        "error::pytest.PytestUnhandledThreadExceptionWarning")
+    def test_raw_garbage_on_the_wire_does_not_kill_the_node(self, tmp_path):
+        """A port-scanner / hostile client writing raw bytes (bad framing,
+        oversized length prefixes, empty connects) must not take the node
+        down or wedge its accept loop — legitimate traffic keeps flowing."""
+        import socket
+        import struct
+
+        notary = make_node(tmp_path, "Notary", notary="simple")
+        alice = make_node(tmp_path, "Alice")
+        nodes = [notary, alice]
+        try:
+            for n in nodes:
+                n.refresh_netmap()
+            addr = (notary.messaging.my_address.host,
+                    notary.messaging.my_address.port)
+            payloads = [
+                b"",                                   # connect + close
+                b"\x00",                               # short read
+                b"GET / HTTP/1.1\r\n\r\n",             # wrong protocol
+                struct.pack(">I", 0xFFFFFFF0) + b"x",  # absurd length prefix
+                b"\xff" * 4096,                        # framed-looking noise
+            ]
+            # a WELL-FRAMED frame whose payload decodes to a non-sequence
+            from corda_tpu_torch.serialization.codec import serialize
+
+            scalar = bytes(serialize(7).bytes)
+            payloads.append(struct.pack(">I", len(scalar)) + scalar)
+            # a well-formed 'msg' frame with WRONG-TYPED fields (dict where
+            # the dedupe id must be bytes) must die at the reader, not on
+            # the node's pump thread
+            evil = bytes(serialize(
+                ("msg", "platform.session", 0, {"a": 1}, "h", 1, b"")).bytes)
+            payloads.append(struct.pack(">I", len(evil)) + evil)
+            for payload in payloads:
+                s = socket.create_connection(addr, timeout=2)
+                try:
+                    if payload:
+                        s.sendall(payload)
+                finally:
+                    s.close()
+                for n in nodes:
+                    n.run_once(timeout=0.01)
+            # the node still serves legitimate protocol traffic
+            stx = issue_and_move(alice, notary.identity, magic=77)
+            h = alice.start_flow(NotaryClientFlow(stx))
+            pump_until(nodes, lambda: h.result.done)
+            h.result.result().verify(stx.id.bytes)
+        finally:
+            for n in nodes:
+                n.stop()
+
+
+    @pytest.mark.filterwarnings(
+        "error::pytest.PytestUnhandledThreadExceptionWarning")
+    def test_garbage_acking_peer_does_not_kill_the_bridge(self, tmp_path):
+        """An outbound bridge whose peer replies with garbage instead of
+        ACK frames must reconnect-and-retry, not lose its thread — and the
+        node keeps serving other peers."""
+        import socket
+        import threading
+
+        from corda_tpu_torch.node.messaging.api import TopicSession
+        from corda_tpu_torch.node.messaging.tcp import TcpAddress
+
+        notary = make_node(tmp_path, "Notary", notary="simple")
+        alice = make_node(tmp_path, "Alice")
+        nodes = [notary, alice]
+
+        fake = socket.socket()
+        fake.bind(("127.0.0.1", 0))
+        fake.listen(4)
+        fake_addr = TcpAddress("127.0.0.1", fake.getsockname()[1])
+        hits = []
+
+        def fake_peer():
+            fake.settimeout(5)
+            try:
+                while len(hits) < 2:  # original connect + >=1 reconnect
+                    conn, _ = fake.accept()
+                    hits.append(1)
+                    conn.settimeout(2)
+                    try:
+                        conn.recv(4096)  # the bridged frame
+                        conn.sendall(b"\xde\xad\xbe\xef" * 4)  # garbage
+                    except OSError:
+                        pass
+                    conn.close()
+            except OSError:
+                pass
+
+        t = threading.Thread(target=fake_peer, daemon=True)
+        t.start()
+        try:
+            for n in nodes:
+                n.refresh_netmap()
+            alice.messaging.send(TopicSession("platform.session", 0),
+                                 b"payload", fake_addr)
+            deadline = __import__("time").monotonic() + 6
+            while __import__("time").monotonic() < deadline and len(hits) < 2:
+                for n in nodes:
+                    n.run_once(timeout=0.01)
+            assert len(hits) >= 2, "bridge never reconnected after garbage"
+            # the node still serves legitimate peers
+            stx = issue_and_move(alice, notary.identity, magic=88)
+            h = alice.start_flow(NotaryClientFlow(stx))
+            pump_until(nodes, lambda: h.result.done)
+            h.result.result().verify(stx.id.bytes)
+        finally:
+            fake.close()
+            t.join(timeout=2)
+            for n in nodes:
+                n.stop()
+
+
+class TestRoundTransactions:
+    """The run-loop round batch (NodeDatabase.batch + TcpMessaging round
+    deferral): a round commits as ONE unit, a failed round rolls back as one
+    unit, and the dedupe/ACK machinery follows the transaction's fate."""
+
+    def test_round_commits_as_unit(self, tmp_path):
+        from corda_tpu_torch.node.services.persistence import NodeDatabase
+
+        db = NodeDatabase(tmp_path / "n.db")
+        with db.batch():
+            db.set_setting("a", "1")
+            db.set_setting("b", "2")
+            # Not yet visible to a second connection (uncommitted).
+            assert db.aux_conn.execute(
+                "SELECT COUNT(*) FROM settings WHERE key IN ('a','b')"
+            ).fetchone()[0] == 0
+        assert db.get_setting("a") == "1"
+        assert db.get_setting("b") == "2"
+        db.close()
+
+    def test_failed_round_rolls_back(self, tmp_path):
+        from corda_tpu_torch.node.services.persistence import NodeDatabase
+
+        db = NodeDatabase(tmp_path / "n.db")
+        with pytest.raises(RuntimeError):
+            with db.batch():
+                db.set_setting("a", "1")
+                raise RuntimeError("mid-round failure")
+        assert db.get_setting("a") is None
+        # The connection stays usable for the next round.
+        with db.batch():
+            db.set_setting("a", "2")
+        assert db.get_setting("a") == "2"
+        db.close()
+
+    def test_foreign_thread_commit_is_immediate(self, tmp_path):
+        # A webserver-style thread must keep commit-before-return while the
+        # node thread holds a round open (db.lock serializes them).
+        import threading
+
+        from corda_tpu_torch.node.services.persistence import (
+            DBAttachmentStorage,
+            NodeDatabase,
+        )
+
+        db = NodeDatabase(tmp_path / "n.db")
+        storage = DBAttachmentStorage(db)
+        in_round = threading.Event()
+        release = threading.Event()
+        result = {}
+
+        def node_round():
+            with db.batch():
+                db.set_setting("round", "open")
+                in_round.set()
+                release.wait(timeout=5.0)
+
+        def http_upload():
+            in_round.wait(timeout=5.0)
+            att_id = storage.import_attachment(b"payload")
+            # By the time import_attachment returns, the row must be durable
+            # (visible to an independent connection).
+            result["count"] = db.aux_conn.execute(
+                "SELECT COUNT(*) FROM attachments WHERE att_id = ?",
+                (att_id.bytes,)).fetchone()[0]
+
+        t1 = threading.Thread(target=node_round)
+        t2 = threading.Thread(target=http_upload)
+        t1.start()
+        t2.start()
+        # The upload blocks on db.lock until the round ends.
+        release.set()
+        t1.join(timeout=10.0)
+        t2.join(timeout=10.0)
+        assert result.get("count") == 1
+        db.close()
+
+    def test_dedupe_mirror_follows_round_fate(self, tmp_path):
+        from corda_tpu_torch.node.messaging.tcp import _Dedupe
+        from corda_tpu_torch.node.services.persistence import NodeDatabase
+
+        db = NodeDatabase(tmp_path / "n.db")
+        dedupe = _Dedupe(db)
+        # Aborted round: the mirror entry must unwind with the rollback so a
+        # redelivery is processed, not swallowed.
+        try:
+            with db.batch():
+                dedupe.record(b"lost-message")
+                raise RuntimeError("round failed")
+        except RuntimeError:
+            pass
+        dedupe.round_aborted()
+        assert not dedupe.seen(b"lost-message")
+        # Committed round: the entry stays.
+        with db.batch():
+            dedupe.record(b"kept-message")
+        dedupe.round_committed()
+        assert dedupe.seen(b"kept-message")
+        db.close()
+
+    def test_flush_checkpoints_fails_bad_flow_in_place(self):
+        # Round-3 advisor: propagating a serialization error out of
+        # flush_checkpoints rolled back the WHOLE round and exited the node;
+        # restart replayed the flow to the same unserializable state — a
+        # permanent crash loop. The bad flow must instead be failed like a
+        # handler exception would fail it, keeping the round committable.
+        from corda_tpu_torch.flows.api import FlowException
+        from corda_tpu_torch.node.statemachine import (
+            InMemoryCheckpointStorage,
+            StateMachineManager,
+        )
+
+        failed = []
+
+        class _Good:
+            state = "runnable"
+            run_id = b"good"
+
+        class _Bad:
+            state = "runnable"
+            run_id = b"bad"
+
+            def _fail(self, exc):
+                self.state = "done"
+                failed.append(exc)
+
+        storage = InMemoryCheckpointStorage()
+        smm = StateMachineManager.__new__(StateMachineManager)
+        smm.defer_checkpoints = True
+        smm.checkpoint_storage = storage
+        smm.metrics = {"checkpointing_rate": 0}
+
+        def ser(fsm):
+            if fsm.run_id == b"bad":
+                raise FlowException("unserializable flow state")
+            return b"blob-" + fsm.run_id
+
+        smm._serialize_checkpoint = ser
+        smm._dirty_checkpoints = {b"bad": _Bad(), b"good": _Good()}
+        assert smm.flush_checkpoints() == 1
+        assert [type(e) for e in failed] == [FlowException]
+        # The good flow's checkpoint was written; the dirty set is drained.
+        assert list(storage.checkpoints()) == [b"blob-good"]
+        assert smm._dirty_checkpoints == {}
+
+    def test_flush_checkpoints_storage_error_still_aborts_round(self):
+        # A STORAGE write failure compromises every flow's durability, not
+        # one flow's state: it must propagate and abort the round.
+        from corda_tpu_torch.node.statemachine import StateMachineManager
+
+        class _Flow:
+            state = "runnable"
+            run_id = b"f"
+
+        class _BrokenStorage:
+            def update_checkpoint(self, run_id, blob):
+                raise OSError("disk full")
+
+        smm = StateMachineManager.__new__(StateMachineManager)
+        smm.defer_checkpoints = True
+        smm.checkpoint_storage = _BrokenStorage()
+        smm.metrics = {"checkpointing_rate": 0}
+        smm._serialize_checkpoint = lambda fsm: b"blob"
+        smm._dirty_checkpoints = {b"f": _Flow()}
+        with pytest.raises(OSError):
+            smm.flush_checkpoints()
+
+
+# ---------------------------------------------------------------------------
+# Features whose modules wait for a later slice, and the boot warm
+# ---------------------------------------------------------------------------
+
+from corda_tpu_torch.node import node as node_module  # noqa: E402
+from corda_tpu_torch.node.config import (  # noqa: E402
+    ShardConfig,
+    VaultConfig,
+)
+
+
+@pytest.mark.parametrize("kw, item", [
+    ({"notary": "raft-simple", "raft_cluster": ("N",)}, "5.4"),
+    ({"notary": "raft-validating", "raft_cluster": ("N",)}, "5.4"),
+    ({"notary_shards": ShardConfig(count=2, groups=(("N",), ("M",)))}, "5.4"),
+    ({"vault": VaultConfig(indexed=True)}, "5.5"),
+    ({"map_service": True}, "5.5"),
+    ({"web_port": 0}, "5.5"),
+    ({"tls": True}, "3"),
+    ({"batch": BatchConfig(federation_hosts="h1:1,h2:2")}, "6"),
+    ({"batch": BatchConfig(sidecar="sidecar.sock", sidecar_devices=2)},
+     "6"),
+], ids=["raft-simple", "raft-validating", "notary_shards", "vault.indexed",
+        "map_service", "web_port", "tls", "federation_hosts",
+        "sidecar_devices"])
+def test_unported_feature_raises_naming_its_item(tmp_path, kw, item):
+    config = NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
+                        network_map=tmp_path / "netmap.json",
+                        verifier="cpu", **kw)
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP.md queue 1 item {item}\)"):
+        Node(config)
+    assert not (tmp_path / "N").exists()  # nothing was opened
+
+
+@pytest.mark.parametrize("env", ["CORDA_TPU_VAULT_INDEXED",
+                                 "CORDA_TPU_FEDERATION"])
+def test_unported_feature_env_raises(tmp_path, monkeypatch, env):
+    monkeypatch.setenv(env, "1")
+    with pytest.raises(NotImplementedError, match="queue 1 item"):
+        Node(NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
+                        network_map=tmp_path / "netmap.json",
+                        verifier="cpu"))
+
+
+def test_rpc_vault_page_raises_until_the_indexed_vault(tmp_path):
+    import threading
+
+    from corda_tpu_torch.node.rpc import RpcClient, RpcError
+
+    node = make_node(tmp_path, "RpcNode", rpc_users=(
+        {"username": "ops", "password": "pw", "permissions": ["ALL"]},))
+    stop = threading.Event()
+    pumper = threading.Thread(
+        target=lambda: [node.run_once(timeout=0.01)
+                        for _ in iter(stop.is_set, True)], daemon=True)
+    pumper.start()
+    client = RpcClient(node.messaging.my_address, "ops", "pw", timeout=10.0)
+    try:
+        with pytest.raises(RpcError, match=r"NotImplementedError.*item 5.5"):
+            client.call("vault_page")
+        assert client.call("vault_snapshot") == ()
+        metrics = client.call("node_metrics")
+        assert metrics["verifier"] == "cpu-openssl"
+        assert metrics["verify_device_ready"] is None  # nothing to warm
+    finally:
+        client.close()
+        stop.set()
+        pumper.join(timeout=2)
+        node.stop()
+
+
+class _FakeCudaVerifier:
+    """Looks like a TorchVerifier on the card: name "torch", a CUDA device,
+    and a warm() that raises or records when it ran."""
+
+    name = "torch"
+    device_min_sigs = 4
+
+    def __init__(self, fail: bool):
+        import torch
+
+        self.device = torch.device("cuda")
+        self.fail = fail
+        self.warmed = 0
+
+    def warm(self):
+        if self.fail:
+            raise RuntimeError("nvcc: kernel build failed")
+        self.warmed += 1
+
+    def verify_batch(self, jobs):
+        from corda_tpu_torch.crypto.provider import CpuVerifier
+
+        return CpuVerifier().verify_batch(jobs)
+
+
+def test_warm_that_raises_fails_start(tmp_path, monkeypatch):
+    fake = _FakeCudaVerifier(fail=True)
+    monkeypatch.setattr(node_module, "_make_verifier", lambda kind: fake)
+    node = Node(NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
+                           network_map=tmp_path / "netmap.json"))
+    try:
+        with pytest.raises(RuntimeError, match="kernel build failed"):
+            node.start()
+        assert not node._started
+    finally:
+        node.stop()
+
+
+def test_warm_that_raises_makes_main_exit_nonzero(tmp_path, monkeypatch):
+    monkeypatch.setattr(node_module, "_make_verifier",
+                        lambda kind: _FakeCudaVerifier(fail=True))
+    path = tmp_path / "n.toml"
+    path.write_text(f'name = "N"\nbase_dir = "{tmp_path / "N"}"\n'
+                    f'network_map = "{tmp_path / "netmap.json"}"\n')
+    assert node_module.main([str(path)]) == 1
+
+
+def test_warm_runs_before_checkpoint_restore(tmp_path, monkeypatch):
+    fake = _FakeCudaVerifier(fail=False)
+    monkeypatch.setattr(node_module, "_make_verifier", lambda kind: fake)
+    order = []
+    node = Node(NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
+                           network_map=tmp_path / "netmap.json"))
+    real_warm, real_start = fake.warm, node.smm.start
+    monkeypatch.setattr(fake, "warm",
+                        lambda: (order.append("warm"), real_warm())[1])
+    monkeypatch.setattr(node.smm, "start",
+                        lambda: (order.append("smm.start"), real_start())[1])
+    try:
+        node.start()
+        assert order == ["warm", "smm.start"]
+        assert fake.warmed == 1
+    finally:
+        node.stop()
+
+
+def test_cpu_torch_verifier_has_nothing_to_warm(tmp_path, monkeypatch):
+    from corda_tpu_torch.crypto.provider import TorchVerifier
+
+    verifier = TorchVerifier(device="cpu", device_min_sigs=0)
+    warmed = []
+    monkeypatch.setattr(verifier, "warm", lambda: warmed.append(1))
+    monkeypatch.setattr(node_module, "_make_verifier", lambda kind: verifier)
+    node = Node(NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
+                           network_map=tmp_path / "netmap.json")).start()
+    try:
+        assert warmed == []
+        assert verifier.device_gate is None
+    finally:
+        node.stop()
+
+
+def test_torch_verifier_without_a_card_raises_before_opening(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the torch verifier builds there")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Node(NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
+                        network_map=tmp_path / "netmap.json"))
+    assert not (tmp_path / "N").exists()
