@@ -144,7 +144,40 @@ Phases, in order; any failure exits non-zero and prints no result:
                  card (from node_metrics and the batch-size histogram
                  over RPC) and the notary's backend stamp is "cuda"; the
                  notary must exit 0 on SIGTERM.
- 22. the verify kernel's registers, static SASS counts, resident blocks
+ 22. raft     -- the Raft notary cluster (BASELINE config 1): (a) three
+                 raft members (RaftA, RaftB, RaftC), Alice and Bob, port
+                 Nodes in this process over localhost TCP and sqlite,
+                 round-robin run_once with the default [batch] and [raft],
+                 phase 20's workload notarised at RaftA against
+                 raft-simple and raft-validating, one burst each, every
+                 node on "torch" and on "cpu" in the turns card, host,
+                 host, card; card outcomes and notary signatures must
+                 equal the host's, exactly the 10 tampered moves and the
+                 5 second spends refused, all three members' committed
+                 inputs equal to each other's and to the notarised
+                 transactions, every batch at or above the crossover on
+                 the card, nothing degraded, and in the validating card
+                 runs RaftA (the receiving member) launching both verify
+                 kernels; who led, the wall split by RaftA's and the
+                 leader's round stages and phases (seal, replicate,
+                 apply), the leader's raft stamp, phase 21 (a)'s single
+                 notary beside it. (b) the sharded notary: two
+                 raft-validating groups of three, 200 flows, card then
+                 host; outcomes equal, each group's committed inputs
+                 exactly the refs shard_of gives it, their union the
+                 notarised set; the providers' fast-path, remote and
+                 cross-shard counts. (c) RaftA, RaftB, RaftC
+                 (raft-validating) and Alice as processes through the
+                 port's driver, RaftA booted first (the demo flow's
+                 notary) on "torch" on the card and the rest on "cpu",
+                 then RaftA on "cpu": the open-loop ladder at max_wait_ms
+                 2; every flow returns a 64-hex id, each rung adds
+                 exactly the returned moves to every member's sqlite
+                 commit log, on the card RaftA's stamp is "cuda", its
+                 device batches non-zero at 240 and 720 tx/s and every
+                 batch at or above the crossover on the card; every
+                 member exits 0 on SIGTERM.
+ 23. the verify kernel's registers, static SASS counts, resident blocks
      per SM and waves at N_MAIN, and the SHA-256 kernels' SASS counts (no
      byte loads in sha256_many's block loop) and occupancy at the wave;
      the kernels line, then the device line (last).
@@ -2849,6 +2882,458 @@ def phase_node(provider, kernels, mock_res, card):
     return out
 
 
+# --- the Raft notary cluster: in process, sharded, real processes ----------
+
+# BASELINE config 1 proper: samples/raft-notary-demo's three-member Raft
+# notary (BASELINE.json configs[0]; the reference demo starts a raft
+# validating notary, bench.py:570-572).
+RAFT_KINDS = (False, True)  # raft-simple, raft-validating
+SHARD_FLOWS = 200  # phase 22 (b): fewer than phase 20's 1,000, to save time
+SHARD_BAD = 2
+SHARD_DOUBLE = 1
+RAFT_STAGES = ("pump", "raft", "services", "verify", "checkpoint", "commit")
+RAFT_PHASES = ("poll", "verify_wait", "seal", "replicate", "apply", "reply",
+               "wall")
+RAFT_STAMP_KEYS = ("entries_per_batch", "append_frames",
+                   "append_entries_sent", "replication_rtt_ms_avg",
+                   "reply_coalesce_ratio", "reply_frames", "reply_commands",
+                   "forward_frames", "forward_commands", "elections_won",
+                   "term", "commit_index", "apply_batches")
+
+
+def raft_run(nl, api, kernels, side, validating, work):
+    """One burst of the workload through three raft members (RaftA, RaftB,
+    RaftC), Alice and Bob, port Nodes over localhost TCP in this process,
+    every node's verifier NODE_KINDS[side]; the flows notarise at RaftA.
+    The card's launches are counted from 0 after the nodes' warm-up."""
+    base = tempfile.mkdtemp(prefix="cts_raft")
+    members, others = (), ()
+    try:
+        members, alice, bob = nl.make_raft_nodes(api, base, NODE_KINDS[side],
+                                                 validating)
+        others = (alice, bob)
+        if work is None:
+            work = nl.build_workload(api, members[0], alice, bob, NOTARY_N,
+                                     NOTARY_BAD, NOTARY_DOUBLE, NOTARY_SEED)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = nl.run_raft_workload(api, members, alice, bob, work)
+        torch.cuda.synchronize()
+        res["launches"] = dict(kernels.LAUNCHES)
+        return res, work
+    finally:
+        for node in (*members, *others):
+            node.stop()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def raft_summary(res) -> dict:
+    out = tcp_summary(dict(res, nodes=dict(res["nodes"],
+                                           Notary=res["nodes"]["RaftA"])))
+    out["nodes"].pop("Notary")
+    lead = res["leader"]
+    out.update({
+        "leader": lead, "first_leader": res["first_leader"],
+        "terms": res["terms"],
+        "leader_round_stage_s": res["nodes"][lead]["round_stage_s"],
+        "leader_round_phase_s": res["nodes"][lead]["round_phase_s"],
+        "raft_stamp": {k: res["raft_stamp"].get(k)
+                       for k in RAFT_STAMP_KEYS},
+        "raft_phase_s": res["raft_stamp"].get("phase_s"),
+        "members_committed": {k: len(v) for k, v in
+                              res["members_committed"].items()}})
+    return out
+
+
+def check_raft_runs(nl, key, runs, work, device_min, validating):
+    """Phase 22 (a)'s checks over one configuration's four runs."""
+    want = nl.expected_outcomes(work)
+    host = runs["host"][0]
+    kinds = [o[:1] if o[0] == "ok" else o for o in host["outcomes"]]
+    check(kinds == want, f"raft {key}: host outcomes differ from the "
+          "workload's (the 10 flipped signatures refused, the 5 second "
+          "spends conflicting, the rest notarised)")
+    notarised_ids = {tx for tx, o in zip(host["tx_ids"], host["outcomes"])
+                     if o[0] == "ok"}
+    for res in runs["host"] + runs["card"]:
+        check(res["outcomes"] == host["outcomes"],
+              f"raft {key}: outcomes or notary signature bytes differ "
+              "between runs")
+        committed = list(res["members_committed"].values())
+        check(all(c == committed[0] for c in committed)
+              and committed[0] == host["committed"]
+              and set(committed[0].values()) == notarised_ids
+              and len(committed[0]) == NOTARY_N - NOTARY_BAD,
+              f"raft {key}: the members' committed inputs differ from each "
+              "other or from the notarised transactions "
+              f"({ {k: len(v) for k, v in res['members_committed'].items()} }"
+              f" committed, {res['notarised']} notarised)")
+        for name, m in res["nodes"].items():
+            check(m["verify_device_degraded"] == 0,
+                  f"raft {key}: {name} degraded its device tier")
+    for res in runs["card"]:
+        for name, m in res["nodes"].items():
+            above, under = crossover_split(m["batch_sizes"], device_min)
+            check(m["device_batches"] == above and m["host_batches"] == under,
+                  f"raft {key}: {name}'s batches at or above the crossover "
+                  f"({above}) did not all take the card: device "
+                  f"{m['device_batches']} host {m['host_batches']}")
+        check(res["launches"]["ed25519_verify"] > 0
+              and res["launches"]["sha512_challenge"] > 0
+              and sum(m["device_batches"] for m in res["nodes"].values())
+              == res["launches"]["ed25519_verify"],
+              f"raft {key}: the card run's launches {res['launches']} are "
+              "not its device batches")
+        if validating:
+            check(res["nodes"]["RaftA"]["device_batches"] > 0,
+                  f"raft {key}: RaftA, which receives every request, "
+                  "launched no verify kernel")
+
+
+def log_raft_run(card, label, r) -> None:
+    lat = r["latency"]
+    stamp = r["raft_stamp"]
+    log(f"{card} | {label}: {r['notarisations_s']:.1f} notarisations/s; "
+        f"flow p50 {ms_or_na(lat['p50_ms'])} ms p99 "
+        f"{ms_or_na(lat['p99_ms'])} ms max {ms_or_na(lat['max_ms'])} ms "
+        f"over {lat['n']}; wall {r['wall_ms']:.1f} ms; led by "
+        f"{r['first_leader']} then {r['leader']} (terms {r['terms']}); "
+        "RaftA round_stage_s ms "
+        + split_ms(r["notary_round_stage_s"], RAFT_STAGES)
+        + f" over {r['notary_round_stage_s'].get('rounds', 0)} rounds; "
+        f"leader {r['leader']} round_stage_s ms "
+        + split_ms(r["leader_round_stage_s"], RAFT_STAGES)
+        + "; leader round_phase_s ms "
+        + split_ms(r["leader_round_phase_s"], RAFT_PHASES)
+        + f"; leader raft stamp: {stamp['entries_per_batch']} entries a "
+        f"batch, {stamp['append_frames']} append frames, replication "
+        f"round trip {stamp['replication_rtt_ms_avg']} ms, reply "
+        f"coalescing {stamp['reply_coalesce_ratio']} ("
+        f"{stamp['reply_commands']} replies in {stamp['reply_frames']} "
+        "frames); nodes " + "; ".join(
+            f"{k} {v['verify_batches']} batches (device "
+            f"{v['device_batches']} host {v['host_batches']})"
+            for k, v in r["nodes"].items())
+        + f"; launches verify {r['launches']['ed25519_verify']} "
+        f"challenge {r['launches']['sha512_challenge']} "
+        f"sha256_many {r['launches']['sha256_many']}")
+
+
+def phase_raft_in_process(nl, api, kernels, device_min, node_res,
+                          card) -> dict:
+    """Phase 22 (a): BASELINE config 1 at full size, in this process."""
+    out, works = {}, {}
+    single = node_res["in_process"]
+    for validating in RAFT_KINDS:
+        key = f"raft-{'validating' if validating else 'simple'}-burst"
+        runs = {"card": [], "host": []}
+        t0 = time.perf_counter()
+        for side in NODE_TURNS:
+            res, works[validating] = raft_run(nl, api, kernels, side,
+                                              validating,
+                                              works.get(validating))
+            runs[side].append(res)
+        check_raft_runs(nl, key, runs, works[validating], device_min,
+                        validating)
+        out[key] = {side: [raft_summary(r) for r in rs]
+                    for side, rs in runs.items()}
+        out[key]["under_crossover_host_batches"] = [
+            sum(crossover_split(m["batch_sizes"], device_min)[1]
+                for m in r["nodes"].values()) for r in runs["card"]]
+        out[key]["seconds"] = time.perf_counter() - t0
+        for side in ("card", "host"):
+            for r in out[key][side]:
+                log_raft_run(card, f"raft {key} {side}", r)
+        one = single[key.removeprefix("raft-")]
+        for side in ("card", "host"):
+            log(f"{card} | raft {key} {side}, same call: one notary (phase "
+                "21 a) " + ", ".join(
+                    f"{r['notarisations_s']:.1f}/s p99 "
+                    f"{ms_or_na(r['latency']['p99_ms'])} ms"
+                    for r in one[side])
+                + " | three raft members " + ", ".join(
+                    f"{r['notarisations_s']:.1f}/s p99 "
+                    f"{ms_or_na(r['latency']['p99_ms'])} ms"
+                    for r in out[key][side]))
+        log(f"{card} | raft {key}: checks passed (outcomes and signatures = "
+            "host, all three members' committed inputs = each other's = "
+            "the notarised transactions, every batch at or above the "
+            "crossover on the card, no degrade"
+            + (", RaftA launched both verify kernels" if validating else "")
+            + "); batches under the crossover on the host by design: "
+            f"{out[key]['under_crossover_host_batches']}; "
+            f"{out[key]['seconds']:.1f} s")
+    out["launches"] = {key: out[key]["card"][0]["launches"]
+                       for key in ("raft-simple-burst",
+                                   "raft-validating-burst")}
+    return out
+
+
+def shard_run(nl, api, kernels, side, work):
+    """Phase 22 (b), one run: two raft-validating groups of three, Alice and
+    Bob in this process, every node on NODE_KINDS[side]."""
+    base = tempfile.mkdtemp(prefix="cts_shard")
+    nodes = ()
+    try:
+        cluster, alice, bob = nl.make_shard_nodes(api, base,
+                                                  NODE_KINDS[side], True)
+        nodes = (*[m for g in cluster for m in g], alice, bob)
+        if work is None:
+            work = nl.build_workload(api, cluster[0][0], alice, bob,
+                                     SHARD_FLOWS, SHARD_BAD, SHARD_DOUBLE,
+                                     NOTARY_SEED)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = nl.run_shard_workload(api, cluster, alice, bob, work)
+        torch.cuda.synchronize()
+        res["launches"] = dict(kernels.LAUNCHES)
+        return res, work
+    finally:
+        for node in nodes:
+            node.stop()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def phase_shards(nl, api, kernels, device_min, card) -> dict:
+    """Phase 22 (b): the sharded notary, two raft-validating groups of
+    three, 200 flows of the workload, card then host."""
+    from corda_tpu_torch.contracts.structures import StateRef
+    from corda_tpu_torch.crypto.hashes import SecureHash
+    from corda_tpu_torch.node.services.sharding import shard_of
+
+    t0 = time.perf_counter()
+    card_res, work = shard_run(nl, api, kernels, "card", None)
+    host_res, _ = shard_run(nl, api, kernels, "host", work)
+    want = nl.expected_outcomes(work)
+    kinds = [o[:1] if o[0] == "ok" else o for o in host_res["outcomes"]]
+    check(kinds == want, "shards: host outcomes differ from the workload's")
+    check(card_res["outcomes"] == host_res["outcomes"],
+          "shards: card outcomes or notary signatures differ from the host's")
+    notarised = {}
+    for stx, o in zip(work.moves + work.doubles, host_res["outcomes"]):
+        if o[0] == "ok":
+            for ref in stx.tx.inputs:
+                notarised[(bytes(ref.txhash.bytes), ref.index)] = bytes(
+                    stx.id.bytes)
+    out = {}
+    for side, res in (("card", card_res), ("host", host_res)):
+        union = {}
+        for g, rows in enumerate(res["groups_committed"]):
+            check(all(r == rows[0] for r in rows),
+                  f"shards {side}: group {g}'s members hold different "
+                  "committed inputs")
+            owned = {k: v for k, v in notarised.items()
+                     if shard_of(StateRef(SecureHash(k[0]), k[1]), 2) == g}
+            check(rows[0] == owned,
+                  f"shards {side}: group {g} holds {len(rows[0])} inputs, "
+                  f"not the {len(owned)} that shard_of gives it")
+            union.update(rows[0])
+        check(union == notarised, f"shards {side}: the groups' union is not "
+              "the notarised set")
+        stamps = res["provider_stamps"]
+        counts = {k: sum(s[k] for s in stamps.values())
+                  for k in ("single_shard", "remote_single", "cross_shard",
+                            "aborts_sent", "reserve_retries")}
+        nodes = {k: {f: v[f] for f in ("verify_batches", "device_batches",
+                                       "host_batches")}
+                 for k, v in res["nodes"].items() if v["verify_batches"]}
+        lat = percentiles_ms(res["flow_s"][:SHARD_FLOWS])
+        out[side] = {"notarisations_s": res["notarised"] / res["wall_s"],
+                     "latency": lat, "counts": counts, "nodes": nodes,
+                     "groups_committed": [len(r[0]) for r in
+                                          res["groups_committed"]],
+                     "launches": res["launches"]}
+        if side == "card":
+            for name, m in res["nodes"].items():
+                above, _ = crossover_split(m["batch_sizes"], device_min)
+                check(m["device_batches"] == above
+                      and m["verify_device_degraded"] == 0,
+                      f"shards card: {name}'s batches at or above the "
+                      "crossover did not all take the card")
+        log(f"{card} | shards {side}: {out[side]['notarisations_s']:.1f} "
+            f"notarisations/s; flow p50 {ms_or_na(lat['p50_ms'])} ms p99 "
+            f"{ms_or_na(lat['p99_ms'])} ms max {ms_or_na(lat['max_ms'])} ms "
+            f"over {lat['n']}; committed per group "
+            f"{out[side]['groups_committed']}; provider stamps {counts}; "
+            f"verifying nodes {nodes}; launches verify "
+            f"{res['launches']['ed25519_verify']} challenge "
+            f"{res['launches']['sha512_challenge']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{card} | shards: checks passed (outcomes = host, each group's "
+        "committed inputs = the refs shard_of gives it, union = the "
+        f"notarised set); {out['seconds']:.1f} s")
+    return out
+
+
+def raft_ladder_session(nl, driver_mod, side, device_min, card):
+    """Phase 22 (c), one placement: RaftA, RaftB and RaftC (raft-validating)
+    and Alice as processes through ``python -m corda_tpu_torch.node.node``.
+    RaftA boots first, so it is the first notary in every netmap and the
+    demo flow's pick: on the card side it alone runs "torch" on the card;
+    every other process runs "cpu". Then the open-loop ladder through
+    Alice's RPC at the default [batch] policy (max_wait_ms 2)."""
+    base = tempfile.mkdtemp(prefix="cts_raftladder")
+    rows, t0 = [], time.perf_counter()
+    clients, rcs = [], {}
+    try:
+        with driver_mod.driver(base) as d:
+            members = nl.start_raft_processes(
+                d, True, {"RaftA": "accelerator" if side == "card"
+                          else "cpu"}, cordapps=(DEMO_CORDAPP,))
+            alice = d.start_node("Alice", cordapps=(DEMO_CORDAPP,),
+                                 rpc=True, device="cpu")
+            boot_s = time.perf_counter() - t0
+            client = alice.rpc("demo", "s3cret", timeout=60.0)
+            clients.append(client)
+            ops = {m.name: m.rpc("demo", "s3cret", timeout=60.0)
+                   for m in members}
+            clients.extend(ops.values())
+            deadline = time.monotonic() + 60
+            while True:
+                seen = [n.legal_identity.name
+                        for n in client.call("network_map_snapshot")]
+                roles = {k: o.call("node_metrics")["raft"]["role"]
+                         for k, o in ops.items()}
+                if (set(nl.RAFT_NAMES) <= set(seen)
+                        and "leader" in roles.values()):
+                    break
+                check(time.monotonic() < deadline, "raft ladder: no leader "
+                      f"or Alice never saw the cluster ({roles}, {seen})")
+                time.sleep(0.1)
+            warm = nl.run_open_loop(client, LADDER_RATES[0], LADDER_WARM,
+                                    LADDER_FLOWS * len(LADDER_RATES) + 1)
+            check(all(x is not None for x in warm["latency_s"]),
+                  "raft ladder: the warm-up flows did not finish")
+            dbs = {m.name: m.base_dir / "node.db" for m in members}
+            magic = 1
+            for rate in LADDER_RATES:
+                before = {k: (tier_counts(o.call("node_metrics")),
+                              batches_by_size(o)) for k, o in ops.items()}
+                committed_before = {k: nl.committed_inputs_at(p)
+                                    for k, p in dbs.items()}
+                run = nl.run_open_loop(client, rate, LADDER_FLOWS, magic)
+                magic += LADDER_FLOWS
+                returned = [r for r in run["results"] if isinstance(r, str)
+                            and len(r) == 64
+                            and all(c in "0123456789abcdef" for c in r)]
+                check(len(returned) == LADDER_FLOWS
+                      and all(x is not None for x in run["latency_s"]),
+                      f"raft ladder {side} {rate} tx/s: {len(returned)} of "
+                      f"{LADDER_FLOWS} flows returned a 64-hex id: "
+                      f"{[r for r in run['results'] if r not in returned][:3]}")
+                # Each member's sqlite commit log gains exactly the returned
+                # moves' inputs (followers apply a heartbeat behind).
+                deadline = time.monotonic() + 30
+                while True:
+                    new = {k: {v.hex() for ref, v in
+                               nl.committed_inputs_at(p).items()
+                               if ref not in committed_before[k]}
+                           for k, p in dbs.items()}
+                    if all(ids == set(returned) for ids in new.values()):
+                        break
+                    check(time.monotonic() < deadline,
+                          f"raft ladder {side} {rate} tx/s: the members "
+                          "committed " + ", ".join(
+                              f"{k} {len(v)} ({len(v & set(returned))} "
+                              "returned)" for k, v in new.items())
+                          + f" of {len(returned)} returned ids")
+                    time.sleep(0.05)
+                metrics = {k: o.call("node_metrics") for k, o in ops.items()}
+                leader = next((k for k, m in metrics.items()
+                               if m["raft"]["role"] == "leader"), None)
+                row = {"rate_tx_s": rate, "tx_per_sec": run["tx_per_sec"],
+                       "start_lag_ms": run["start_lag_s"] * 1e3,
+                       "latency": percentiles90_ms(run["latency_s"]),
+                       "committed": {k: len(v) for k, v in new.items()},
+                       "leader": leader,
+                       "raft_stamp": ({k: metrics[leader]["raft"].get(k)
+                                       for k in RAFT_STAMP_KEYS}
+                                      if leader else None)}
+                for k, o in ops.items():
+                    tiers = tier_counts(metrics[k])
+                    sizes = batches_by_size(o)
+                    d_t = {f: tiers[f] - before[k][0][f] for f in tiers}
+                    d_t["at_or_above_crossover"] = sum(
+                        v - before[k][1].get(i, 0) for i, v in sizes.items()
+                        if (1 << (i - 1) if i else 0) >= device_min)
+                    d_t["backend"] = metrics[k]["kernel_backend"]
+                    row[k] = d_t
+                a = row["RaftA"]
+                if side == "card":
+                    check(a["backend"] == "cuda",
+                          f"raft ladder: RaftA's backend stamp is "
+                          f"{a['backend']!r}, not 'cuda'")
+                    check(a["device"] == a["at_or_above_crossover"]
+                          and a["host"] == a["batches"] - a["device"]
+                          and a["degraded"] == 0,
+                          f"raft ladder card {rate} tx/s: RaftA's batches at "
+                          f"or above the crossover did not all take the "
+                          f"card: {a}")
+                    if rate >= 240:
+                        check(a["device"] > 0, f"raft ladder card {rate} "
+                              "tx/s: RaftA took no device batch: Alice's "
+                              "requests did not reach the card member")
+                rows.append(row)
+                lat = row["latency"]
+                log(f"{card} | raft ladder {side} {rate:g} tx/s offered: p50 "
+                    f"{ms_or_na(lat['p50_ms'])} p90 {ms_or_na(lat['p90_ms'])}"
+                    f" p99 {ms_or_na(lat['p99_ms'])} max "
+                    f"{ms_or_na(lat['max_ms'])} ms over {lat['n']}; "
+                    f"{row['tx_per_sec']:.1f} tx/s achieved (last request "
+                    f"sent {row['start_lag_ms']:.1f} ms behind schedule); "
+                    f"committed {row['committed']}; RaftA batches "
+                    f"{a['batches']} (device {a['device']} host {a['host']}, "
+                    f"{a['at_or_above_crossover']} at or above {device_min})"
+                    f" backend {a['backend']}; leader {leader} raft stamp "
+                    f"{row['raft_stamp']}")
+            for c in clients:
+                c.close()
+            clients = []
+            for m in members:
+                m.process.terminate()
+                rcs[m.name] = m.process.wait(timeout=60)
+            check(all(rc == 0 for rc in rcs.values()),
+                  f"raft ladder: member exit codes {rcs}")
+        return {"side": side, "boot_s": boot_s, "rows": rows,
+                "member_exit": rcs, "seconds": time.perf_counter() - t0}
+    finally:
+        for c in clients:
+            c.close()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def phase_raft(provider, kernels, node_res, card):
+    """Phase 22: the Raft notary cluster on the card. (a) In process,
+    BASELINE config 1 at full size: RaftA, RaftB, RaftC, Alice and Bob, port
+    Nodes over localhost TCP, phase 20's workload notarised at RaftA
+    against raft-simple and raft-validating, every node on "torch" and on
+    "cpu" in the turns card, host, host, card. (b) The sharded notary: two
+    raft-validating groups of three, 200 flows, card then host. (c) Real
+    processes: the three members and Alice through the port's driver,
+    RaftA on the card (then on the host), the open-loop ladder."""
+    from corda_tpu_torch.testing import driver as driver_mod
+    from corda_tpu_torch.testing import notary_load as nl
+
+    device_min = provider.DEVICE_MIN_SIGS_DEFAULT
+    api = nl.port_api()
+    t0 = time.perf_counter()
+    out = {"in_process": phase_raft_in_process(nl, api, kernels, device_min,
+                                               node_res, card)}
+    out["in_process_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["shards"] = phase_shards(nl, api, kernels, device_min, card)
+    out["shards_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    out["ladder"] = [raft_ladder_session(nl, driver_mod, side, device_min,
+                                         card) for side in ("card", "host")]
+    out["ladder_s"] = time.perf_counter() - t2
+    log(f"{card} | phase 22 seconds: in process {out['in_process_s']:.1f}, "
+        f"shards {out['shards_s']:.1f}, processes {out['ladder_s']:.1f} ("
+        + ", ".join(f"{s['side']} {s['seconds']:.1f} incl. boot "
+                    f"{s['boot_s']:.1f}" for s in out["ladder"]) + ")")
+    return out
+
+
 # --- parent against change: the SHA-256 kernels of two trees in turns ------
 
 
@@ -3105,7 +3590,10 @@ def main() -> int:
     # 21. the production node over TCP: in process, then real processes
     node_res = phase_node(provider, kernels, notary_res, card)
 
-    # 22. kernels line
+    # 22. the Raft notary cluster: in process, sharded, real processes
+    raft_res = phase_raft(provider, kernels, node_res, card)
+
+    # 23. kernels line
     bound1, by1 = bound_ms(N_MAIN * VERIFY_BYTES,
                            main_res["verify_least_int_ops"])
     bound2, by2 = bound_ms(N_MAIN * CHALLENGE_BYTES,
@@ -3176,7 +3664,7 @@ def main() -> int:
               "adaptive_coalesce": adaptive_res, "verify_pump": pump_res,
               "batch_sign": sign_res, "resolve": resolve_res,
               "hash_crossover": hash_cross, "sha256_oversize": oversize_res,
-              "notary": notary_res, "node": node_res,
+              "notary": notary_res, "node": node_res, "raft": raft_res,
               "ptxas": {s: ptxas_summary(_build, s) for s in _build.SOURCES},
               "sass_sha512_challenge": sass2,
               "challenge_least_int_ops": CHALLENGE_INT_OPS,

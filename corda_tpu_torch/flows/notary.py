@@ -14,9 +14,7 @@ core/src/main/kotlin/net/corda/flows/NotaryFlow.kt) and ValidatingNotaryFlow
 The batched difference: every signature check suspends into the node's
 micro-batched verifier (VerifyTxRequest) so concurrent notarisation requests
 verify as ONE kernel batch — the reference's sequential hot loop
-(SignedTransaction.kt:83-87) becomes the batch axis. The lazy imports of
-``node/services/raft.py`` and ``sharding.py`` reach the port's partial
-copies of those modules (ROADMAP.md).
+(SignedTransaction.kt:83-87) becomes the batch axis.
 """
 
 from __future__ import annotations

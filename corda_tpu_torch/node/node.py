@@ -27,11 +27,14 @@ The port's own copy of ``corda_tpu/node/node.py``. What differs:
   ``start()`` (``main`` exits 1) instead of leaving the node on the host
   tier for good, which would hide the card.
 * SIGTERM stops the node cleanly (exit 0), as Ctrl-C does.
-* Features whose modules wait for a later slice (raft notaries, the
-  sharded notary, the indexed vault, the wire network map, the web API,
-  mutual TLS, the verifier federation, the sidecar's device stamp) raise
-  ``NotImplementedError`` naming their ROADMAP.md item when configured,
-  before the node opens its store or its listener.
+* stop() drains a raft member's apply executor (``quiesce_apply``) and
+  ends its thread before the store closes.
+* Features whose modules wait for a later slice (the indexed vault, the
+  wire network map, the web API, mutual TLS, the verifier federation, the
+  sidecar's device stamp) raise ``NotImplementedError`` naming their
+  ROADMAP.md item when configured, before the node opens its store or its
+  listener. Raft notaries (``raft-simple`` / ``raft-validating``) and the
+  sharded notary (``[notary_shards]``) are the reference's branches.
 """
 
 from __future__ import annotations
@@ -115,12 +118,6 @@ def _refuse_unported(config: NodeConfig) -> None:
     later slice of the port, before anything is opened."""
     if config.tls:
         raise not_ported("mutual TLS (tls = true; crypto/x509.py)", "3")
-    if config.notary.startswith("raft"):
-        raise not_ported(f"the {config.notary} notary "
-                         "(node/services/raft.py)", "5.4")
-    if config.notary_shards is not None:
-        raise not_ported("the sharded notary ([notary_shards]; "
-                         "node/services/sharding.py)", "5.4")
     if config.vault.indexed or os.environ.get(
             "CORDA_TPU_VAULT_INDEXED", "") not in ("", "0"):
         raise not_ported("the indexed vault ([vault] indexed, "
@@ -201,6 +198,38 @@ class Node:
             services = (ServiceInfo(SIMPLE_NOTARY),)
         elif config.notary in ("validating", "raft-validating"):
             services = (ServiceInfo(VALIDATING_NOTARY),)
+        self._shard_epoch_advertised = 0
+        if config.notary_shards is not None:
+            # Shard members also advertise their group + the total shard
+            # count ("corda.notary.shard.<g>of<n>[@epoch]"): the netmap
+            # every party already syncs doubles as the shard directory, so
+            # clients recover the full shard map with zero extra round
+            # trips. Members of PENDING groups (index >= count — boot-ahead
+            # split targets) advertise nothing until a reshard epoch
+            # activates them, and a restart replays the group's durable
+            # fence so the advertisement matches what the state machine
+            # enforces (a retired member drops its shard string entirely).
+            import json as _json
+
+            from .services.sharding import shard_service_string
+
+            my_group = next(
+                (g for g, members in enumerate(config.notary_shards.groups)
+                 if config.name in members), None)
+            count, epoch = config.notary_shards.count, 0
+            raw = self.db.get_setting("shard_fence")
+            fence = _json.loads(raw) if raw else None
+            if fence is not None and fence.get("mode") == "retired":
+                my_group = None
+                self._shard_epoch_advertised = int(fence["epoch"])
+            elif fence is not None and fence.get("mode") == "active":
+                my_group = int(fence["group"])
+                count = int(fence["count"])
+                epoch = int(fence["epoch"])
+            if my_group is not None and my_group < count:
+                services += (ServiceInfo(ServiceType(shard_service_string(
+                    my_group, count, epoch))),)
+                self._shard_epoch_advertised = epoch
         self.info = NodeInfo(
             address=self.messaging.my_address,
             legal_identity=self.identity,
@@ -268,8 +297,37 @@ class Node:
         self.notary_service = None
         self.raft_member = None
         if config.notary != "none":
-            # Raft notaries are refused above; raft_member stays None.
-            self.uniqueness_provider = PersistentUniquenessProvider(self.db)
+            if config.notary.startswith("raft"):
+                from .services.raft import (
+                    RaftMember,
+                    RaftUniquenessProvider,
+                    make_apply_command,
+                )
+
+                self.raft_member = RaftMember(
+                    name=config.name,
+                    peers={},  # populated from the netmap on refresh
+                    messaging=self.messaging,
+                    db=self.db,
+                    apply_command=make_apply_command(self.db),
+                    config=config.raft,  # commit-pipeline policy ([raft])
+                )
+                # Cross-group reply routing (sharded notary): resolve ANY
+                # netmap member by name, not just this member's own peers,
+                # so a coordinator in another group gets its ClientReply
+                # back even though it is outside our raft_cluster.
+                self.raft_member.resolve_addr = self._netmap_addrs.get
+                if config.notary_shards is not None:
+                    from .services.sharding import ShardedUniquenessProvider
+
+                    self.uniqueness_provider = ShardedUniquenessProvider(
+                        self.raft_member, pump=self._raft_pump,
+                        shards=config.notary_shards)
+                else:
+                    self.uniqueness_provider = RaftUniquenessProvider(
+                        self.raft_member, pump=self._raft_pump)
+            else:
+                self.uniqueness_provider = PersistentUniquenessProvider(self.db)
             cls = (ValidatingNotaryService
                    if config.notary.endswith("validating")
                    else SimpleNotaryService)
@@ -361,9 +419,9 @@ class Node:
 
         self._started = False
         # Elastic resharding: the latest plan seen on the netmap (set by
-        # refresh_netmap; no provider acts on it until the sharded notary
-        # is ported).
+        # refresh_netmap), and a throttle on the fence-observation poll.
         self._reshard_plan: tuple[int, int, int] | None = None
+        self._fence_checked_at = 0.0
 
     # -- network map -------------------------------------------------------
 
@@ -427,6 +485,15 @@ class Node:
                     and entry.name != self.config.name):
                 self.raft_member.peers[entry.name] = info.address
         self._reshard_plan = plan
+
+    def _raft_pump(self) -> None:
+        """Drive consensus while a flow blocks in commit(): deliver raft
+        messages (SMM session dispatch is re-entrancy-guarded and just
+        queues) and advance election/heartbeat timers."""
+        self.messaging.pump(timeout=0.001)
+        if self.raft_member is not None:
+            self.raft_member.tick()
+            self.raft_member.flush_appends()
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -639,6 +706,7 @@ class Node:
         if flush is not None:
             flush()
         self._sample_metrics_maybe()
+        self._reshard_tick()
         return n
 
     # Counters HISTORY (the time-series half of the reference's JMX/Jolokia
@@ -680,6 +748,72 @@ class Node:
             self._netmap_refreshed_at = now
             self.refresh_netmap()
 
+    # -- elastic resharding ------------------------------------------------
+
+    RESHARD_FENCE_POLL_S = 0.2
+
+    def _reshard_tick(self) -> None:
+        """Advance the elastic-reshard machinery, once per run-loop round.
+        Two halves, both no-ops outside a transition: (a) observe the local
+        group's APPLIED fence (every RESHARD_FENCE_POLL_S — the fence only
+        moves while a plan is live) and re-advertise the epoch'd service
+        string once it activates, so clients re-deriving the directory see
+        the new map; (b) drive the provider's handoff coordinator (active
+        only on the source group's current leader)."""
+        prov = self.uniqueness_provider
+        if prov is None or not hasattr(prov, "reshard_tick"):
+            return
+        now = time.monotonic()
+        if (self._reshard_plan is not None
+                and now - self._fence_checked_at >= self.RESHARD_FENCE_POLL_S):
+            self._fence_checked_at = now
+            self._observe_fence()
+        prov.reshard_tick(self._reshard_plan, now)
+
+    def _observe_fence(self) -> None:
+        """Align the advertisement + routing with the group's applied fence
+        state. Every member does this from its OWN replicated state (not
+        from the plan): a follower that applied the activation re-registers
+        even if the coordinator died right after committing it."""
+        import json as _json
+
+        raw = self.db.get_setting("shard_fence")
+        if not raw:
+            return
+        fence = _json.loads(raw)
+        mode = fence.get("mode")
+        if mode not in ("active", "retired"):
+            return  # sealed/importing: keep the old advertisement
+        epoch = int(fence["epoch"])
+        if epoch <= self._shard_epoch_advertised:
+            return
+        from .services.sharding import (
+            SHARD_SERVICE_PREFIX,
+            shard_service_string,
+        )
+
+        base = tuple(s for s in self.info.advertised_services
+                     if not str(s.type).startswith(SHARD_SERVICE_PREFIX))
+        if mode == "active":
+            base += (ServiceInfo(ServiceType(shard_service_string(
+                int(fence["group"]), int(fence["count"]), epoch))),)
+        # mode == "retired": the shard string is dropped — the member keeps
+        # serving its raft group (so lagging replicas can catch up and
+        # in-flight replies drain) but no client routes new work at it.
+        self.info = NodeInfo(
+            address=self.info.address,
+            legal_identity=self.info.legal_identity,
+            advertised_services=base,
+        )
+        path = self.config.network_map
+        if path is not None:
+            netmap_register(
+                path, self.config.name, self.messaging.my_address.host,
+                self.messaging.my_address.port, self.identity.owning_key,
+                tuple(str(s.type) for s in self.info.advertised_services))
+        self._shard_epoch_advertised = epoch
+        self.uniqueness_provider.reconfigure(int(fence["count"]), epoch)
+
     def stop(self) -> None:
         svc = self.smm.async_verify
         if svc is not None and not svc.close(timeout=30.0):
@@ -690,6 +824,23 @@ class Node:
                 "interpreter exit may abort — exit this process via "
                 "process death, not finalization")
         self.messaging.stop()
+        rm = self.raft_member
+        if rm is not None:
+            # The raft apply executor writes committed_states under
+            # db.lock: drain what it holds, then end its thread, before the
+            # store closes, so no thread writes to a closed sqlite.
+            try:
+                rm.quiesce_apply()
+            except Exception:
+                logging.getLogger("corda_tpu_torch.node").exception(
+                    "raft apply executor did not drain at stop()")
+            thread, q = rm._apply_thread, rm._apply_queue
+            if thread is not None and thread.is_alive():
+                try:
+                    q.put(None, timeout=1.0)  # the executor's shutdown mark
+                except Exception:
+                    pass
+                thread.join(timeout=5.0)
         if self.scrubber is not None:
             # Before db.close(): the scrubber holds its own connection, but
             # a pass racing teardown must wind down while the store is

@@ -22,8 +22,8 @@ one — "cpu" renders ``verifier = "cpu"`` and hides the card from the child
 "accelerator" renders ``verifier = "torch"`` and leaves the card visible.
 No JAX environment is set: a spawned node finds its kernels already built
 under ``build/corda_tpu_torch/`` (ops.BUILD_ROOT) or builds them at its
-warm-up. The sidecar, federation and sharded-cluster spawners wait for the
-slices that port those services (ROADMAP.md queue 1 items 5.4 and 6). A
+warm-up. The sidecar and federation spawners wait for the slice that ports
+those services (ROADMAP.md queue 1 item 6). A
 node spawned over a base_dir whose log already holds a banner (a restart)
 waits for its own banner, not the previous process's.
 
@@ -276,6 +276,27 @@ def render_node_config(name: str, node_dir, netmap, notary: str = "none",
     return "\n".join(lines) + "\n"
 
 
+def shard_groups_toml(groups, reserve_ttl_s: float = 15.0,
+                      count: int | None = None) -> str:
+    """The `[notary_shards]` fragment for a sharded-notary topology
+    (services/sharding.py): identical text for every member — each node
+    derives its own group from its own name. `groups` is a sequence of
+    member-name sequences, index = shard id. `count` below len(groups)
+    marks the trailing groups as PENDING split targets (booted and
+    electable but owning no keyspace until a reshard epoch activates
+    them). NOTE: this opens a TOML table, so when composing extra_toml put
+    this fragment LAST among bare keys (the same ordering rule
+    render_node_config applies to [[rpc_users]])."""
+    groups = list(groups)
+    rows = ",\n  ".join(
+        "[" + ", ".join(_toml_escape(str(m)) for m in g) + "]"
+        for g in groups)
+    return ("[notary_shards]\n"
+            f"count = {len(groups) if count is None else int(count)}\n"
+            f"reserve_ttl_s = {_toml_escape(float(reserve_ttl_s))}\n"
+            "groups = [\n  " + rows + ",\n]")
+
+
 def _node_env(device: str) -> dict:
     """Per-node device policy (the production topology: only the notary
     process owns the card; every other child stays on the host path).
@@ -359,6 +380,48 @@ class Driver:
         if wait:
             handle.wait_up()
         return handle
+
+    def start_shard_cluster(self, groups: int = 2, members: int = 3,
+                            notary: str = "raft-simple",
+                            reserve_ttl_s: float = 15.0,
+                            extra_toml: str = "",
+                            cordapps: tuple[str, ...] = (),
+                            rpc: bool = False,
+                            device_member: tuple[int, int] | None = None,
+                            env_extra: dict | None = None,
+                            wait: bool = True,
+                            prefix: str = "Shard",
+                            count: int | None = None) -> list:
+        """Boot a sharded notary: `groups` independent Raft groups of
+        `members` nodes each (names Shard0A, Shard0B, ... Shard1A, ...),
+        every member carrying the same [notary_shards] map so each derives
+        its group from its own name. Returns handles indexed
+        [group][member]. `device_member` names the single (group, member)
+        that owns the card (production placement: one card, one process;
+        its verifier is "torch"); everyone else stays on the host path
+        (verifier "cpu", the card hidden). `count` below
+        `groups` boots the trailing groups as pending split targets for a
+        live reshard (publish_reshard_plan activates them)."""
+        names = [[f"{prefix}{g}{chr(ord('A') + m)}" for m in range(members)]
+                 for g in range(groups)]
+        shard_toml = shard_groups_toml(names, reserve_ttl_s, count=count)
+        merged = (extra_toml + "\n" + shard_toml) if extra_toml else shard_toml
+        handles = []
+        for g, group_names in enumerate(names):
+            row = []
+            for m, name in enumerate(group_names):
+                device = ("accelerator" if device_member == (g, m) else "cpu")
+                row.append(self.start_node(
+                    name, notary=notary, raft_cluster=tuple(group_names),
+                    cordapps=cordapps, rpc=rpc,
+                    wait=False, extra_toml=merged, device=device,
+                    env_extra=env_extra))
+            handles.append(row)
+        if wait:
+            for row in handles:
+                for h in row:
+                    h.wait_up()
+        return handles
 
     def restart_node(self, handle: NodeProcess,
                      wait: bool = True) -> NodeProcess:

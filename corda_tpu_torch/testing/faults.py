@@ -19,12 +19,19 @@ package the hooks fire from:
 * ``netmap.refresh`` -- Node ``refresh_netmap``: drop, stall, crash;
 * ``disk.corrupt`` -- the checkpoint restore read
   (:func:`fire_disk_corrupt`): flip (a seeded bit-flip on read);
-* ``disk.full`` -- the uniqueness provider's commit
-  (:func:`fire_disk_full`): full, stall, crash.
+* ``disk.full`` -- the uniqueness provider's commit and the raft log
+  append (:func:`fire_disk_full`): full, stall, crash;
+* ``raft.append`` -- RaftMember ``_send`` (append traffic): drop, delay,
+  duplicate, crash;
+* ``raft.fsync`` -- the raft log append (sqlite insert and commit): fail,
+  stall, crash;
+* ``shard.handoff`` -- the reshard coordinator, per streamed state frame:
+  drop, stall, crash;
+* ``disk.corrupt`` -- also the raft log read path.
 
-The reference's builtin plans wait for the loadtest slice (ROADMAP.md);
-the raft and reshard points stay in ``POINTS`` so plan files validate the
-same in both packages.
+``builtin_plan`` names the reference's plans (``lossy``, ``slow-disk``,
+``flaky-device``, ``reshard``, ``bitrot`` and the partition family) with
+the same seeds and rules.
 
 A process arms at most one :class:`FaultPlan`.  A hook consults the
 module-level ``ACTIVE`` plan; when no plan is armed the hook is a single
@@ -39,6 +46,11 @@ event counter — the transport offers every frame to
 auto-sided specs over the cluster identities; ``heal_partitions`` lifts
 every cut.  TOML plans declare them as ``[[partition]]`` tables
 (``kind`` / ``a`` / ``b`` / ``after`` / ``duration`` / ``period``).
+
+``shard.handoff`` crash is the coordinator-death-mid-handoff case (the
+next leader of the source group re-runs the idempotent sequence);
+``netmap.refresh`` drop keeps a node routing on a stale shard directory —
+its requests bounce ``WrongShardEpoch`` until a later refresh lands.
 
 Determinism: every rule owns a ``random.Random`` seeded from
 ``(plan seed, point, rule index)``, and probability draws consume that
@@ -91,6 +103,7 @@ __all__ = [
     "heal_partitions",
     "plan_from_toml",
     "arm_from_env",
+    "builtin_plan",
     "PLAN_ENV",
 ]
 
@@ -493,3 +506,71 @@ def arm_from_env(node_name: str | None = None) -> FaultPlan | None:
     with open(path, "r", encoding="utf-8") as f:
         text = f.read()
     return arm(plan_from_toml(text, node_name=node_name))
+
+
+def builtin_plan(name: str, node_name: str | None = None) -> FaultPlan:
+    """Named plans for the chaos loadtest / bench (``lossy``, ``slow-disk``,
+    ``flaky-device``, ``reshard``, ``bitrot``, and the partition family
+    ``split-brain`` / ``asym`` / ``flap`` — also reachable as
+    ``partition.<name>`` for CLI pass-through)."""
+    if name.startswith("partition."):
+        name = name[len("partition."):]
+    if name == "split-brain":
+        # Symmetric split-brain with the familiar lossy rule riding along
+        # (partitions and probabilistic rules compose in one plan): the
+        # cut arms after 200 offered frames, holds for 2500, then heals —
+        # the majority side must keep committing, the minority none.
+        return FaultPlan(29, [
+            FaultRule("transport.send", "drop", p=0.02, max_fires=200),
+        ], node_name=node_name, partitions=[
+            PartitionSpec("split", after=200, duration=2500),
+        ])
+    if name == "asym":
+        # One-way cut: the first bound node can still HEAR the cluster
+        # but nothing it sends gets out — the half-open link that makes
+        # naive elections churn.
+        return FaultPlan(31, [], node_name=node_name, partitions=[
+            PartitionSpec("asym", after=200, duration=2000),
+        ])
+    if name == "flap":
+        # Flapping split with a seeded half-cycle: the cut toggles every
+        # `period` frames for 4000 frames — the rejoin-storm shape that
+        # pre-vote exists to keep from inflating terms.
+        return FaultPlan(37, [], node_name=node_name, partitions=[
+            PartitionSpec("flap", after=200, duration=4000),
+        ])
+    if name == "lossy":
+        # ~5% send-side loss; durable outbox re-poll recovers each loss
+        # within ~1s, so the run completes with elevated tail latency.
+        return FaultPlan(7, [
+            FaultRule("transport.send", "drop", p=0.05, max_fires=500),
+        ], node_name=node_name)
+    if name == "reshard":
+        # The reshard-under-fire plan: lossy transport THROUGH the
+        # transition plus handoff-frame loss and one stale-directory
+        # window, so the exactly-once audit exercises resubmitted install
+        # frames and WrongShardEpoch bounces, not just the happy path.
+        return FaultPlan(17, [
+            FaultRule("transport.send", "drop", p=0.05, max_fires=500),
+            FaultRule("shard.handoff", "drop", p=0.25, max_fires=8),
+            FaultRule("netmap.refresh", "drop", p=0.10, max_fires=20),
+        ], node_name=node_name)
+    if name == "bitrot":
+        # Storage-corruption soak (durability plane, round 14): seeded
+        # bit-flips on the raft-log read path plus two bounded disk-full
+        # write failures. Detection (crc mismatch) turns each flip into a
+        # truncate-and-lag repair; the exactly-once audit must still hold.
+        return FaultPlan(23, [
+            FaultRule("disk.corrupt", "flip", p=0.02, max_fires=6),
+            FaultRule("disk.full", "full", p=0.05, after=40, max_fires=2),
+        ], node_name=node_name)
+    if name == "slow-disk":
+        return FaultPlan(11, [
+            FaultRule("raft.fsync", "stall", p=0.10, delay_s=0.05,
+                      max_fires=200),
+        ], node_name=node_name)
+    if name == "flaky-device":
+        return FaultPlan(13, [
+            FaultRule("verify.device", "fail", p=1.0, max_fires=1),
+        ], node_name=node_name)
+    raise ValueError(f"unknown builtin fault plan {name!r}")

@@ -23,6 +23,18 @@ round-robin ``run_once`` as the scheduler. ``run_open_loop`` starts a flow
 through RPC on a fixed schedule, whatever completes, and times each from
 its scheduled start to the change feed's report of its end.
 
+The same workload runs against a Raft notary cluster (BASELINE config 1,
+samples/raft-notary-demo's three members): ``make_raft_nodes`` boots the
+members RaftA, RaftB and RaftC (``raft-simple`` or ``raft-validating``)
+beside Alice and Bob and waits for a leader; ``run_raft_workload``
+notarises at RaftA, pumps every member, waits until every member has
+applied the notarised commits and adds each member's committed inputs,
+the leader and its raft stamp. ``start_raft_processes`` spawns the
+members as processes through the driver. ``make_shard_nodes`` and
+``run_shard_workload`` do the same for the sharded notary: raft groups
+under one ``[notary_shards]`` map, each group's committed inputs read
+from its members.
+
 Everything here is passed the package it drives (``api``: ``MockNetwork``,
 ``DummyContract`` and ``NotaryClientFlow``; for nodes also ``Node``,
 ``NodeConfig`` and ``NodeDatabase``), so the same
@@ -42,13 +54,19 @@ from types import SimpleNamespace
 import numpy as np
 
 NODE_NAMES = ("Notary", "Alice", "Bob")
+RAFT_NAMES = ("RaftA", "RaftB", "RaftC")
+# The sharded notary: two raft groups of three, named as the driver's
+# start_shard_cluster names them.
+SHARD_NAMES = (("Shard0A", "Shard0B", "Shard0C"),
+               ("Shard1A", "Shard1B", "Shard1C"))
+ELECT_TIMEOUT_S = 60.0  # the in-process clusters' wait for their leaders
 
 
 def port_api() -> SimpleNamespace:
     """This package's MockNetwork, DummyContract, NotaryClientFlow, Node,
-    NodeConfig and NodeDatabase."""
+    NodeConfig, ShardConfig and NodeDatabase."""
     from ..flows.notary import NotaryClientFlow
-    from ..node.config import NodeConfig
+    from ..node.config import NodeConfig, ShardConfig
     from ..node.node import Node
     from ..node.services.persistence import NodeDatabase
     from .dummies import DummyContract
@@ -56,7 +74,8 @@ def port_api() -> SimpleNamespace:
 
     return SimpleNamespace(MockNetwork=MockNetwork, DummyContract=DummyContract,
                            NotaryClientFlow=NotaryClientFlow, Node=Node,
-                           NodeConfig=NodeConfig, NodeDatabase=NodeDatabase)
+                           NodeConfig=NodeConfig, ShardConfig=ShardConfig,
+                           NodeDatabase=NodeDatabase)
 
 
 class TimedVerifier:
@@ -257,6 +276,32 @@ def node_seed(name: str) -> bytes:
     return hashlib.sha256(b"notary-load:" + name.encode()).digest()
 
 
+def _start_nodes(api, base_dir, specs) -> list:
+    """Start a ``Node`` for each ``(name, config keywords)`` of ``specs``
+    under ``base_dir`` over localhost TCP, sharing one netmap file, each
+    identity seeded (``node_seed``) through its database before the node
+    opens it; then refresh every netmap and wrap each state machine's
+    verifier, and the async pump's, in a TimedVerifier."""
+    base_dir = Path(base_dir)
+    nodes = []
+    for name, kw in specs:
+        node_dir = base_dir / name
+        node_dir.mkdir(parents=True, exist_ok=True)
+        db = api.NodeDatabase(node_dir / "node.db")
+        db.load_or_create_identity(name, node_seed(name))
+        db.close()
+        nodes.append(api.Node(api.NodeConfig(
+            name=name, base_dir=node_dir, port=0,
+            network_map=base_dir / "netmap.json", **kw)).start())
+    for node in nodes:
+        node.refresh_netmap()
+        timed = TimedVerifier(node.smm.verifier)
+        node.smm.verifier = timed
+        if node.smm.async_verify is not None:
+            node.smm.async_verify.verifier = timed
+    return nodes
+
+
 def make_tcp_nodes(api, base_dir, verifier: str, validating: bool) -> tuple:
     """(notary, alice, bob): started ``Node``s over localhost TCP under
     ``base_dir``, sharing one netmap file, each with ``verifier`` (a config
@@ -265,27 +310,10 @@ def make_tcp_nodes(api, base_dir, verifier: str, validating: bool) -> tuple:
     node's identity is seeded (``node_seed``) through its database before
     the node opens it. Each state machine's verifier, and the async pump's,
     is wrapped in a TimedVerifier."""
-    base_dir = Path(base_dir)
-    nodes = []
-    for name in NODE_NAMES:
-        node_dir = base_dir / name
-        node_dir.mkdir(parents=True, exist_ok=True)
-        db = api.NodeDatabase(node_dir / "node.db")
-        db.load_or_create_identity(name, node_seed(name))
-        db.close()
-        notary = ("none" if name != NODE_NAMES[0] else
-                  "validating" if validating else "simple")
-        nodes.append(api.Node(api.NodeConfig(
-            name=name, base_dir=node_dir, port=0, notary=notary,
-            network_map=base_dir / "netmap.json",
-            verifier=verifier)).start())
-    for node in nodes:
-        node.refresh_netmap()
-        timed = TimedVerifier(node.smm.verifier)
-        node.smm.verifier = timed
-        if node.smm.async_verify is not None:
-            node.smm.async_verify.verifier = timed
-    return tuple(nodes)
+    kind = "validating" if validating else "simple"
+    return tuple(_start_nodes(api, base_dir, [
+        (name, {"notary": kind if name == NODE_NAMES[0] else "none",
+                "verifier": verifier}) for name in NODE_NAMES]))
 
 
 def pump_nodes(nodes, done, timeout_s: float = 300.0,
@@ -324,6 +352,9 @@ def committed_inputs_at(db_path) -> dict:
 
 
 def _decode_committed(rows) -> dict:
+    # The rows' types must be registered with this package's codec, also
+    # in a process that has only driven another package's nodes.
+    from ..node.services.api import ConsumingTx  # noqa: F401
     from ..serialization.codec import deserialize
 
     out = {}
@@ -340,13 +371,14 @@ def _stage_delta(after: dict | None, before: dict | None) -> dict:
 
 
 def run_tcp_workload(api, notary, alice, bob, workload: Workload,
-                     timeout_s: float = 300.0) -> dict:
+                     timeout_s: float = 300.0, others=()) -> dict:
     """``run_workload`` over TCP nodes from ``make_tcp_nodes``: the moves
     in one burst, then the second spends, each round pumped until every
     flow has its result. The record adds, per node, the verifier's device
     and host batches, every batch size, and the run's ``round_stage_s``
-    and ``round_phase_s``."""
-    nodes = (notary, alice, bob)
+    and ``round_phase_s``. ``others`` are more nodes to pump and record
+    (the other members of a raft cluster)."""
+    nodes = (notary, alice, bob, *others)
     stxs = workload.moves + workload.doubles
     starts = [0.0] * len(stxs)
     ends = [0.0] * len(stxs)
@@ -394,6 +426,141 @@ def run_tcp_workload(api, notary, alice, bob, workload: Workload,
         "committed_count": notary.uniqueness_provider.committed_count,
         "nodes": per_node,
     }
+
+
+def make_raft_nodes(api, base_dir, verifier: str, validating: bool) -> tuple:
+    """(raft members, alice, bob): the three raft notary ``Node``s of
+    RAFT_NAMES (``raft-validating`` or ``raft-simple``, one
+    ``raft_cluster``), then Alice and Bob, over localhost TCP under
+    ``base_dir`` with one netmap file, each with ``verifier`` (a config
+    kind), the default ``[batch]`` and ``[raft]`` policy and an identity
+    seeded as ``make_tcp_nodes`` seeds it. Returns once a member leads
+    (pumping every node round-robin; AssertionError after
+    ELECT_TIMEOUT_S). Each state machine's verifier, and the async
+    pump's, is wrapped in a TimedVerifier."""
+    kind = "raft-validating" if validating else "raft-simple"
+    nodes = _start_nodes(api, base_dir, [
+        (name, {"notary": kind, "raft_cluster": RAFT_NAMES,
+                "verifier": verifier}) for name in RAFT_NAMES] + [
+        (name, {"verifier": verifier}) for name in NODE_NAMES[1:]])
+    n = len(RAFT_NAMES)
+    cluster = tuple(nodes[:n])
+    pump_nodes(nodes, lambda: leader_of(cluster) is not None,
+               ELECT_TIMEOUT_S)
+    return cluster, nodes[n], nodes[n + 1]
+
+
+def leader_of(members):
+    """The member that leads (None while an election runs)."""
+    return next((m for m in members if m.raft_member.role == "leader"), None)
+
+
+def run_raft_workload(api, members, alice, bob, workload: Workload,
+                      timeout_s: float = 300.0) -> dict:
+    """``run_tcp_workload`` against a raft cluster from ``make_raft_nodes``:
+    the flows notarise at ``members[0]`` (the transactions' notary), every
+    member is pumped, and once every flow has its result the nodes are
+    pumped on until each member has applied every notarised commit. The
+    record adds ``first_leader`` and ``leader`` (the names of the members
+    that led at the start and at the end), ``terms`` (the raft term then
+    and now: equal when no election ran), ``members_committed`` (each
+    member's committed inputs) and ``raft_stamp`` (the leader's
+    ``RaftMember.stamp()``)."""
+    notary, others = members[0], tuple(members[1:])
+    first = leader_of(members)
+    term0 = first.raft_member.term if first is not None else None
+    res = run_tcp_workload(api, notary, alice, bob, workload, timeout_s,
+                           others=others)
+    want = res["notarised"]
+    pump_nodes((*members, alice, bob), lambda: all(
+        m.uniqueness_provider.committed_count >= want for m in members),
+        timeout_s)
+    lead = leader_of(members)
+    res["leader"] = lead.config.name if lead is not None else None
+    res["first_leader"] = first.config.name if first is not None else None
+    res["terms"] = (term0, lead.raft_member.term if lead is not None
+                    else None)
+    res["members_committed"] = {m.config.name: committed_inputs(m)
+                                for m in members}
+    res["raft_stamp"] = (lead.raft_member.stamp() if lead is not None
+                         else None)
+    return res
+
+
+def make_shard_nodes(api, base_dir, verifier: str, validating: bool) -> tuple:
+    """(groups of members, alice, bob): the raft notary groups of
+    SHARD_NAMES (two groups of three ``Node``s, named as the driver names
+    them) under one ``[notary_shards]`` map, then Alice and Bob, as
+    ``make_raft_nodes`` builds them; returns once every group has a
+    leader."""
+    shards = api.ShardConfig(count=len(SHARD_NAMES), groups=SHARD_NAMES)
+    kind = "raft-validating" if validating else "raft-simple"
+    nodes = _start_nodes(api, base_dir, [
+        (name, {"notary": kind, "raft_cluster": group,
+                "notary_shards": shards, "verifier": verifier})
+        for group in SHARD_NAMES for name in group] + [
+        (name, {"verifier": verifier}) for name in NODE_NAMES[1:]])
+    cluster, i = [], 0
+    for group in SHARD_NAMES:
+        cluster.append(tuple(nodes[i:i + len(group)]))
+        i += len(group)
+    pump_nodes(nodes, lambda: all(leader_of(c) is not None
+                                  for c in cluster), ELECT_TIMEOUT_S)
+    return cluster, nodes[i], nodes[i + 1]
+
+
+def run_shard_workload(api, cluster, alice, bob, workload: Workload,
+                       timeout_s: float = 300.0) -> dict:
+    """``run_tcp_workload`` against the groups of ``make_shard_nodes``: every
+    flow notarises at ``cluster[0][0]`` (the transactions' notary), whose
+    provider commits an input its group owns and forwards the rest to the
+    owning group; once every flow has its result the nodes are pumped on
+    until every member holds its group's share of the notarised inputs. The record adds ``groups_committed``
+    (per group, each member's committed inputs) and ``provider_stamps``
+    (each member's ``ShardedUniquenessProvider.stamp()``)."""
+    from ..node.services.sharding import shard_of
+
+    members = [m for group in cluster for m in group]
+    res = run_tcp_workload(api, members[0], alice, bob, workload, timeout_s,
+                           others=members[1:])
+    count = len(cluster)
+    want = [0] * count
+    for stx, outcome in zip(workload.moves + workload.doubles,
+                            res["outcomes"]):
+        if outcome[0] == "ok":
+            for ref in stx.tx.inputs:
+                want[shard_of(ref, count)] += 1
+    pump_nodes((*members, alice, bob), lambda: all(
+        m.uniqueness_provider.committed_count >= want[g]
+        for g, group in enumerate(cluster) for m in group), timeout_s)
+    res["groups_committed"] = [[committed_inputs(m) for m in group]
+                               for group in cluster]
+    res["provider_stamps"] = {m.config.name: m.uniqueness_provider.stamp()
+                              for m in members}
+    return res
+
+
+def start_raft_processes(d, validating: bool, devices: dict,
+                         cordapps=()) -> list:
+    """Spawn the raft members RAFT_NAMES (one cluster, RPC on) through
+    the driver ``d`` (``python -m corda_tpu_torch.node.node``), each placed
+    on ``devices[name]`` ("accelerator" or "cpu"; the driver picks the
+    verifier from it). RAFT_NAMES[0] is spawned and up before the others
+    start, so it registers first in the network map and is the notary the
+    demo flow picks. Returns the handles in the order of RAFT_NAMES once
+    every member's banner is up."""
+    kind = "raft-validating" if validating else "raft-simple"
+
+    def spawn(name):
+        return d.start_node(name, notary=kind, raft_cluster=RAFT_NAMES,
+                            cordapps=cordapps, rpc=True, wait=False,
+                            device=devices.get(name, "cpu"))
+
+    first, *rest = RAFT_NAMES
+    handles = [spawn(first).wait_up()] + [spawn(name) for name in rest]
+    for h in handles[1:]:
+        h.wait_up()
+    return handles
 
 
 def run_open_loop(client, rate_tx_s: float, n: int, first_magic: int,

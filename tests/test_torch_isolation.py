@@ -7,8 +7,9 @@ A fresh interpreter then imports the port, verifies a 64-lane batch on the
 CPU through the device path's plain versions and through the host tier,
 primes the ids of a small transaction wave through the SHA-256 kernel's
 plain version, notarises through the port's MockNetwork with both notary
-kinds and through three port ``Node``s over localhost TCP and sqlite, and
-must end with neither jax nor corda_tpu loaded.
+kinds, through three port ``Node``s over localhost TCP and sqlite, and
+through a raft-simple cluster of three port ``Node``s, and must end with
+neither jax nor corda_tpu loaded.
 """
 
 import ast
@@ -51,9 +52,9 @@ def test_no_jax_or_corda_tpu_imports(path):
     assert not _imported_roots(path) & FORBIDDEN
 
 
-# The notary path's modules and the node slice's (each a copy of the JAX
-# package's module of the same path, or a cut of it): all are among the
-# files checked above.
+# The notary path's modules, the node slice's and the raft slice's (each a
+# copy of the JAX package's module of the same path, or a cut of it): all
+# are among the files checked above.
 NOTARY_PATH_MODULES = [
     "utils/clock.py", "utils/progress.py", "qos/__init__.py",
     "qos/context.py", "qos/admission.py", "qos/calibrate.py",
@@ -75,6 +76,9 @@ NOTARY_PATH_MODULES = [
     "finance/__init__.py", "finance/amount.py", "finance/on_ledger_asset.py",
     "finance/cash.py", "tools/__init__.py", "tools/fsck.py",
     "tools/demo_cordapp.py", "testing/driver.py",
+    # The raft slice: the whole raft.py and sharding.py (listed above), the
+    # Node's raft wiring (node/node.py), the driver's shard clusters and
+    # the builtin fault plans (testing/faults.py).
 ]
 
 
@@ -148,6 +152,18 @@ with tempfile.TemporaryDirectory() as tmp:
         assert res["committed_count"] == 2
     finally:
         for node in (n, a, b):
+            node.stop()
+# One notarisation through a raft-simple cluster of three port Nodes.
+with tempfile.TemporaryDirectory() as tmp:
+    members, a, b = nl.make_raft_nodes(api, tmp, "cpu", validating=False)
+    try:
+        work = nl.build_workload(api, members[0], a, b, 2, 0, 1, 3)
+        res = nl.run_raft_workload(api, members, a, b, work, timeout_s=60.0)
+        assert [o[0] for o in res["outcomes"]] == ["ok", "ok",
+                                                   "NotaryException"], res
+        assert all(len(c) == 2 for c in res["members_committed"].values())
+    finally:
+        for node in (*members, a, b):
             node.stop()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu"))

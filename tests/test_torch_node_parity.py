@@ -80,10 +80,11 @@ def test_tcp_workload_equals_the_jax_package(tmp_path, validating):
     assert port_res["committed_at"] == port_res["committed"]
     assert port_res["committed_count"] == port_res["notarised"] == 22
     assert port_res["blobs"] == jax_res["blobs"]
+    # Signature counts are the workload's; micro-batch boundaries depend on
+    # when a round wakes, so the number of batches is not compared.
     for name in nl.NODE_NAMES:
-        for key in ("verify_batches", "verify_sigs"):
-            assert (port_res["nodes"][name][key]
-                    == jax_res["nodes"][name][key]), (name, key)
+        assert (port_res["nodes"][name]["verify_sigs"]
+                == jax_res["nodes"][name]["verify_sigs"]), name
 
 
 TOML = """
