@@ -125,7 +125,7 @@ Phases, in order; any failure exits non-zero and prints no result:
                  max_sigs 4096, max_wait_ms 2.0, the async verify pump
                  on), phase 20's workload to a simple and to a validating
                  notary, one burst each, every node on verifier "torch"
-                 and "cpu" in turns (card, host, host, card); card
+                 and "cpu" in turns (card, host); card
                  outcomes, notary signatures and committed inputs must
                  equal the host runs', every batch at or above the
                  crossover must take the card, nothing may degrade; the
@@ -150,8 +150,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                  round-robin run_once with the default [batch] and [raft],
                  phase 20's workload notarised at RaftA against
                  raft-simple and raft-validating, one burst each, every
-                 node on "torch" and on "cpu" in the turns card, host,
-                 host, card; card outcomes and notary signatures must
+                 node on "torch" and on "cpu" in the turns card,
+                 host; card outcomes and notary signatures must
                  equal the host's, exactly the 10 tampered moves and the
                  5 second spends refused, all three members' committed
                  inputs equal to each other's and to the notarised
@@ -177,7 +177,30 @@ Phases, in order; any failure exits non-zero and prints no result:
                  device batches non-zero at 240 and 720 tx/s and every
                  batch at or above the crossover on the card; every
                  member exits 0 on SIGTERM.
- 23. the verify kernel's registers, static SASS counts, resident blocks
+ 23. trades   -- the trader demo (BASELINE config 2, samples/trader-demo):
+                 (a) a validating Notary that hosts the wire network map,
+                 BankA (buyer) and BankB (seller), port Nodes in this
+                 process over localhost TCP, each on its own sqlite with
+                 the indexed vault and a web API; BankA's vault seeded
+                 with 100,000 GBP cash states (seed_states) before it
+                 boots; BankB issues and notarises 200 CommercialPapers,
+                 BankA self-issues 200 USD cash states, then 200
+                 SellerFlow / BuyerFlow trades run 8 at a time, every node
+                 on "torch" and then on "cpu"; every trade must settle,
+                 the notary commit exactly the trades' inputs, BankA hold
+                 the papers and BankB the cash, the vaults equal the
+                 host's, every batch at or above the crossover take the
+                 card; RPC vault_page walks BankA's 100,400 rows with no
+                 duplicate or gap, its cash summing to vault_balances;
+                 /api/status and /metrics answer on every node; each
+                 bank's map, learned over the wire, lists the other bank
+                 and the notary. (b) the same 200 trades over MockNetwork
+                 one at a time (bench_trades), card and host. (c)
+                 NotaryChangeFlow moves 16 DummyMultiOwnerStates of Alice
+                 and Bob from Notary to Notary2, card and host; outcomes
+                 equal, every batch at or above the crossover on the
+                 card. Trades/s and each trade's start-to-result time.
+ 24. the verify kernel's registers, static SASS counts, resident blocks
      per SM and waves at N_MAIN, and the SHA-256 kernels' SASS counts (no
      byte loads in sha256_many's block loop) and occupancy at the wave;
      the kernels line, then the device line (last).
@@ -2507,7 +2530,9 @@ def phase_notary(provider, kernels, async_verify, faults, card):
 
 # Each side's verifier kind for every node of a run (NodeConfig.verifier).
 NODE_KINDS = {"card": "torch", "host": "cpu"}
-NODE_TURNS = ("card", "host", "host", "card")
+# One run a side (PRs 8-9 ran card, host, host, card; cut to make room for
+# phase 23 within the run's time limit).
+NODE_TURNS = ("card", "host")
 # The reference's open-loop ladder (bench.py:716-719): offered tx/s, flows
 # a rate, and the two max_wait_ms settings.
 LADDER_RATES = (60.0, 240.0, 720.0)
@@ -2582,8 +2607,27 @@ def tcp_summary(res) -> dict:
     }
 
 
+def check_node_batches(label, res, device_min) -> None:
+    """Node by node (each over TCP has its own verifier): every verify
+    batch of a card run at or above the crossover took the card and every
+    one under it the host; and the verify kernels launched, once per
+    device batch of all the nodes."""
+    for name, m in res["nodes"].items():
+        above, under = crossover_split(m["batch_sizes"], device_min)
+        check(m["device_batches"] == above and m["host_batches"] == under,
+              f"{label}: {name}'s batches at or above the crossover "
+              f"({above}) did not all take the card: device "
+              f"{m['device_batches']} host {m['host_batches']}")
+    check(res["launches"]["ed25519_verify"] > 0
+          and res["launches"]["sha512_challenge"] > 0
+          and sum(m["device_batches"] for m in res["nodes"].values())
+          == res["launches"]["ed25519_verify"],
+          f"{label}: the card run's launches {res['launches']} are not its "
+          "device batches")
+
+
 def check_tcp_runs(nl, key, runs, work, device_min):
-    """Phase 21 (a)'s checks over one configuration's four runs."""
+    """Phase 21 (a)'s checks over one configuration's runs."""
     want = nl.expected_outcomes(work)
     host = runs["host"][0]
     kinds = [o[:1] if o[0] == "ok" else o for o in host["outcomes"]]
@@ -2607,23 +2651,12 @@ def check_tcp_runs(nl, key, runs, work, device_min):
             check(m["verify_device_degraded"] == 0,
                   f"node {key}: {name} degraded its device tier")
     for res in runs["card"]:
-        for name, m in res["nodes"].items():
-            above, under = crossover_split(m["batch_sizes"], device_min)
-            check(m["device_batches"] == above and m["host_batches"] == under,
-                  f"node {key}: {name}'s batches at or above the crossover "
-                  f"({above}) did not all take the card: device "
-                  f"{m['device_batches']} host {m['host_batches']}")
-        check(res["launches"]["ed25519_verify"] > 0
-              and res["launches"]["sha512_challenge"] > 0
-              and sum(m["device_batches"] for m in res["nodes"].values())
-              == res["launches"]["ed25519_verify"],
-              f"node {key}: the card run's launches {res['launches']} are "
-              "not its device batches")
+        check_node_batches(f"node {key}", res, device_min)
 
 
 def phase_node_tcp(nl, api, kernels, device_min, mock_res, card) -> dict:
     """Phase 21 (a): the simple and the validating burst through three port
-    Nodes in this process over localhost TCP, card, host, host, card."""
+    Nodes in this process over localhost TCP, card then host."""
     out, works = {}, {}
     for validating in (False, True):
         key = f"{'validating' if validating else 'simple'}-burst"
@@ -2849,7 +2882,7 @@ def phase_node(provider, kernels, mock_res, card):
     20's workload (1,000 moves, 10 with a flipped signature byte, 5 second
     spends) to a simple and to a validating notary, one burst each, every
     node on verifier "torch" (card) and "cpu" (host) in the turns card,
-    host, host, card; one more simple card burst under torch.profiler.
+    host; one more simple card burst under torch.profiler.
     (b) Real processes through ``python -m corda_tpu_torch.node.node``,
     spawned by the port's driver: a simple Notary and Alice, both on
     "torch" on the card and then both on "cpu" (in the simple notary's
@@ -2946,7 +2979,7 @@ def raft_summary(res) -> dict:
 
 
 def check_raft_runs(nl, key, runs, work, device_min, validating):
-    """Phase 22 (a)'s checks over one configuration's four runs."""
+    """Phase 22 (a)'s checks over one configuration's runs."""
     want = nl.expected_outcomes(work)
     host = runs["host"][0]
     kinds = [o[:1] if o[0] == "ok" else o for o in host["outcomes"]]
@@ -2972,18 +3005,7 @@ def check_raft_runs(nl, key, runs, work, device_min, validating):
             check(m["verify_device_degraded"] == 0,
                   f"raft {key}: {name} degraded its device tier")
     for res in runs["card"]:
-        for name, m in res["nodes"].items():
-            above, under = crossover_split(m["batch_sizes"], device_min)
-            check(m["device_batches"] == above and m["host_batches"] == under,
-                  f"raft {key}: {name}'s batches at or above the crossover "
-                  f"({above}) did not all take the card: device "
-                  f"{m['device_batches']} host {m['host_batches']}")
-        check(res["launches"]["ed25519_verify"] > 0
-              and res["launches"]["sha512_challenge"] > 0
-              and sum(m["device_batches"] for m in res["nodes"].values())
-              == res["launches"]["ed25519_verify"],
-              f"raft {key}: the card run's launches {res['launches']} are "
-              "not its device batches")
+        check_node_batches(f"raft {key}", res, device_min)
         if validating:
             check(res["nodes"]["RaftA"]["device_batches"] > 0,
                   f"raft {key}: RaftA, which receives every request, "
@@ -3307,7 +3329,7 @@ def phase_raft(provider, kernels, node_res, card):
     BASELINE config 1 at full size: RaftA, RaftB, RaftC, Alice and Bob, port
     Nodes over localhost TCP, phase 20's workload notarised at RaftA
     against raft-simple and raft-validating, every node on "torch" and on
-    "cpu" in the turns card, host, host, card. (b) The sharded notary: two
+    "cpu" in the turns card, host. (b) The sharded notary: two
     raft-validating groups of three, 200 flows, card then host. (c) Real
     processes: the three members and Alice through the port's driver,
     RaftA on the card (then on the host), the open-loop ladder."""
@@ -3331,6 +3353,440 @@ def phase_raft(provider, kernels, node_res, card):
         f"shards {out['shards_s']:.1f}, processes {out['ladder_s']:.1f} ("
         + ", ".join(f"{s['side']} {s['seconds']:.1f} incl. boot "
                     f"{s['boot_s']:.1f}" for s in out["ladder"]) + ")")
+    return out
+
+
+# --- the trader demo: the indexed vault, the trade flows, the map, the web --
+
+# BASELINE config 2 (samples/trader-demo: CommercialPaper sold for cash
+# through a validating notary; bench.py:410-475 bench_trades).
+TRADE_N = 200
+TRADE_IN_FLIGHT = 8  # (a): overlapping trades exercise soft-locked selection
+TRADE_SEED = SEED + 23
+# bench_vault_scaling's middle size (bench.py:1124), the bank-day bulk path:
+# BankA's ballast cash in a second currency, which no trade selects.
+TRADE_BALLAST = 100_000
+VAULT_PAGE = 4096  # RPC vault_page's page size
+# The async verify pump's counters read beside each TCP node's batches: the
+# pump cuts a batch once the crossover's signatures wait on a warm card,
+# and on the host only at max_wait_ms.
+PUMP_KEYS = ("submitted_batches", "effective_min_sigs",
+             "adaptive_adjustments", "queue_wait_s", "verify_wall_s")
+CHANGE_N = 16  # (c): states moved to a second notary
+CHANGE_SEED = SEED + 24
+
+
+def http_get(port: int, path: str) -> tuple[int, str, bytes]:
+    """(status, content type, body) of GET http://127.0.0.1:port/path."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return r.status, r.headers.get("Content-Type", ""), r.read()
+
+
+def rpc_vault_walk(nl, node) -> dict:
+    """Page through ``node``'s whole vault over RPC ``vault_page`` while a
+    thread pumps the node: the row count, distinct refs, whether the refs
+    rise page after page, the paged cash summed per currency and RPC
+    ``vault_balances``."""
+    from corda_tpu_torch.node.rpc import RpcClient
+
+    stop = threading.Event()
+
+    def pump():
+        while not stop.is_set():
+            node.run_once(timeout=0.005)
+
+    pumper = threading.Thread(target=pump, daemon=True)
+    pumper.start()
+    client = RpcClient(node.messaging.my_address, *nl.TRADE_RPC_USER,
+                       timeout=120.0)
+    try:
+        t0 = time.perf_counter()
+        keys, sums, pages, cursor = [], {}, 0, None
+        while True:
+            states, cursor = client.call(
+                "vault_page", None if cursor is None else cursor[0],
+                0 if cursor is None else cursor[1], VAULT_PAGE)
+            pages += 1
+            for sar in states:
+                keys.append((bytes(sar.ref.txhash.bytes), sar.ref.index))
+                amount = getattr(sar.state.data, "amount", None)
+                currency = getattr(getattr(amount, "token", None),
+                                   "product", None)
+                if isinstance(currency, str):
+                    sums[currency] = sums.get(currency, 0) + amount.quantity
+            if cursor is None:
+                break
+        walk_s = time.perf_counter() - t0
+        balances = client.call("vault_balances")
+    finally:
+        client.close()
+        stop.set()
+        pumper.join(timeout=10)
+    return {"rows": len(keys), "distinct": len(set(keys)),
+            "rising": all(a < b for a, b in zip(keys, keys[1:])),
+            "pages": pages, "sums": sums, "balances": balances,
+            "walk_s": walk_s}
+
+
+def web_check(nodes) -> dict:
+    """GET /api/status and /metrics on every node's web API."""
+    from corda_tpu_torch.obs import export
+
+    out = {}
+    for node in nodes:
+        port = node.webserver.port
+        status, _, body = http_get(port, "/api/status")
+        info = json.loads(body)
+        m_status, ctype, text = http_get(port, "/metrics")
+        series = export.parse_prometheus(text.decode())
+        check(status == 200 and info["name"] == node.config.name
+              and m_status == 200 and ctype == export.CONTENT_TYPE
+              and series,
+              f"trade web: {node.config.name}'s /api/status or /metrics "
+              f"did not answer ({status}, {info}, {m_status}, {ctype})")
+        out[node.config.name] = {"status": info, "series": len(series)}
+    return out
+
+
+def map_check(nodes) -> dict:
+    """Each bank registered with the notary's wire map and fetched it; the
+    map holds both banks, and each bank's cache lists the other bank and
+    the notary."""
+    notary, *banks = nodes
+    svc = notary.netmap_service
+    out = {"map_nodes": svc.node_count}
+    for bank in banks:
+        seen = sorted(n.legal_identity.name
+                      for n in bank.network_map_cache.party_nodes)
+        other = next(b for b in banks if b is not bank).config.name
+        check(bank.netmap_client.registered and bank.netmap_client.fetched
+              and svc.get_node(bank.config.name) is not None
+              and other in seen and notary.config.name in seen,
+              f"trade map: {bank.config.name} registered "
+              f"{bank.netmap_client.registered}, fetched "
+              f"{bank.netmap_client.fetched}, cache {seen}")
+        out[bank.config.name] = seen
+    check(svc.node_count == len(banks),
+          f"trade map: the map service holds {svc.node_count} nodes")
+    return out
+
+
+def check_trades(nl, label, res, host) -> None:
+    """Phase 23's checks on one trade run, against the host run: every
+    trade settled, the notary committed exactly the trades' inputs, the
+    buyer holds every paper and its change, the seller the price of each,
+    the vaults equal the host run's, and no node degraded."""
+    buyer, seller = nl.TRADE_NAMES[1:]
+    bad = [o for o in res["outcomes"] if o[0] != "ok"]
+    check(not bad and len(res["outcomes"]) == TRADE_N,
+          f"{label}: {len(bad)} trades did not settle: {bad[:3]}")
+    check(res["committed"] == res["trade_inputs"],
+          f"{label}: the notary's committed inputs "
+          f"({len(res['committed'])}) are not the trades' inputs "
+          f"({len(res['trade_inputs'])})")
+    vb, vs = res["vaults"][buyer], res["vaults"][seller]
+    check(vb["papers"] == TRADE_N and vs["papers"] == 0
+          and vs["balances"].get("USD") == TRADE_N * nl.PRICE
+          and vb["balances"].get("USD")
+          == TRADE_N * (nl.BUYER_CASH - nl.PRICE),
+          f"{label}: {buyer} holds {vb['papers']} papers and "
+          f"{vb['balances']}, {seller} {vs['papers']} and {vs['balances']}")
+    for name in (buyer, seller):
+        check(res["vaults"][name]["contents"]
+              == host["vaults"][name]["contents"]
+              and res["vaults"][name]["balances"]
+              == host["vaults"][name]["balances"],
+              f"{label}: {name}'s vault differs from the host run's")
+    for name, m in res["nodes"].items():
+        check(m["verify_device_degraded"] == 0,
+              f"{label}: {name} degraded its device tier")
+
+
+def check_shared_batches(label, res, device_min) -> None:
+    """A MockNetwork card run, whose nodes share one verifier: of all the
+    nodes' verify batches, those at or above the crossover took the card
+    and those under it the host (``res``'s ``device_batches`` and
+    ``host_batches``: the shared verifier's totals), and the verify
+    kernels launched once per device batch."""
+    above = under = 0
+    for m in res["nodes"].values():
+        a, u = crossover_split(m["batch_sizes"], device_min)
+        above, under = above + a, under + u
+    check(res["device_batches"] == above and res["host_batches"] == under,
+          f"{label}: of its batches {above} were at or above the crossover "
+          f"and {under} under it, but the card took {res['device_batches']} "
+          f"and the host {res['host_batches']}")
+    check(res["launches"]["ed25519_verify"] > 0
+          and res["launches"]["sha512_challenge"] > 0
+          and res["launches"]["ed25519_verify"] == res["device_batches"],
+          f"{label}: the card run's launches {res['launches']} are not its "
+          f"{res['device_batches']} device batches")
+
+
+def trade_summary(res) -> dict:
+    return {"trades_s": res["settled"] / res["wall_s"],
+            "wall_ms": res["wall_s"] * 1e3, "issue_ms": res["issue_s"] * 1e3,
+            "latency": percentiles_ms(res["flow_s"]),
+            "nodes": {k: {f: v[f] for f in (
+                "verify_batches", "verify_sigs", "device_batches",
+                "host_batches", "largest_batch", "verify_s",
+                "round_stage_s")} for k, v in res["nodes"].items()},
+            "launches": res["launches"],
+            "device_batches": res["device_batches"],
+            "host_batches": res["host_batches"],
+            "balances": {k: v["balances"] for k, v in res["vaults"].items()}}
+
+
+def batch_split(res, device_min) -> dict:
+    """Per TCP node: its run-loop rounds, its verify batches by size
+    (under the crossover, one to two times it, two to four times, more)
+    and its pump's counters."""
+    edges = (device_min, 2 * device_min, 4 * device_min)
+    out = {}
+    for name, m in res["nodes"].items():
+        sizes = [0] * (len(edges) + 1)
+        for n in m["batch_sizes"]:
+            sizes[sum(n >= e for e in edges)] += 1
+        out[name] = {"rounds": m["round_stage_s"].get("rounds", 0),
+                     "batches": len(m["batch_sizes"]), "sizes": sizes,
+                     "pump": m["pump"]}
+    return out
+
+
+def log_split(card, label, split, device_min) -> None:
+    d = device_min
+    log(f"{card} | {label}: " + "; ".join(
+        f"{k} {v['rounds']} rounds, {v['batches']} batches of sizes "
+        f"<{d}/{d}-{2 * d - 1}/{2 * d}-{4 * d - 1}/{4 * d}+ "
+        + "/".join(map(str, v["sizes"]))
+        + f", pump submitted {v['pump']['submitted_batches']} crossover "
+        f"{v['pump']['effective_min_sigs']} adjustments "
+        f"{v['pump']['adaptive_adjustments']} verify wall "
+        f"{v['pump']['verify_wall_s'] * 1e3:.1f} ms queue wait "
+        f"{v['pump']['queue_wait_s'] * 1e3:.1f} ms"
+        for k, v in split.items()))
+
+
+def log_trades(card, label, r) -> None:
+    lat = r["latency"]
+    log(f"{card} | {label}: {r['trades_s']:.1f} trades/s; trade p50 "
+        f"{ms_or_na(lat['p50_ms'])} ms p99 {ms_or_na(lat['p99_ms'])} ms max "
+        f"{ms_or_na(lat['max_ms'])} ms over {lat['n']}; wall "
+        f"{r['wall_ms']:.1f} ms (the {TRADE_N} issues notarised before it in "
+        f"{r['issue_ms']:.1f} ms); batches device {r['device_batches']} "
+        f"host {r['host_batches']}; " + "; ".join(
+            f"{k} {v['verify_batches']} batches of {v['verify_sigs']} sigs "
+            f"(largest {v['largest_batch']}"
+            # A node over TCP has its own verifier, hence its own tiers and
+            # round stages; MockNetwork's nodes share one and have neither.
+            + (f"; device {v['device_batches']} host {v['host_batches']}) "
+               "round_stage_s ms " + split_ms(
+                   v["round_stage_s"], ("pump", "verify", "checkpoint",
+                                        "commit"))
+               if v["round_stage_s"] else ")")
+            for k, v in r["nodes"].items())
+        + f"; launches verify {r['launches']['ed25519_verify']} challenge "
+        f"{r['launches']['sha512_challenge']} sha256_many "
+        f"{r['launches']['sha256_many']}")
+
+
+def trade_tcp_run(nl, api, kernels, side, ballast_db):
+    """Phase 23 (a), one side: Notary, BankA and BankB over localhost TCP
+    (BankA's store copied from ``ballast_db``), the trades with the card's
+    launches counted from 0, each node's verify pump, then the web API and
+    the map and, on the card side, BankA's whole vault over RPC."""
+    from corda_tpu_torch.contracts.structures import now_micros
+
+    base = tempfile.mkdtemp(prefix="cts_trade")
+    nodes = ()
+    try:
+        t0 = time.perf_counter()
+        nodes = nl.make_trade_nodes(api, base, NODE_KINDS[side], ballast_db)
+        boot_s = time.perf_counter() - t0
+        trades = nl.build_trades(api, *nodes, TRADE_N, TRADE_SEED,
+                                 now_micros())
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = nl.run_tcp_trades(api, *nodes, trades, TRADE_IN_FLIGHT)
+        torch.cuda.synchronize()
+        res["launches"] = dict(kernels.LAUNCHES)
+        for tier in ("device_batches", "host_batches"):
+            res[tier] = sum(m[tier] for m in res["nodes"].values())
+        for node in nodes:
+            stats = node.smm.async_verify.stats()
+            res["nodes"][node.identity.name]["pump"] = {
+                k: stats.get(k) for k in PUMP_KEYS}
+        res["boot_s"] = boot_s
+        res["rows"] = len(nodes[1].services.vault_service)
+        res["web"] = web_check(nodes)
+        res["map"] = map_check(nodes)
+        if side == "card":
+            res["rpc_vault"] = rpc_vault_walk(nl, nodes[1])
+        return res
+    finally:
+        for node in nodes:
+            node.stop()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def trade_mock_run(nl, api, provider, kernels, side):
+    """Phase 23 (b), one side: the same trades over a MockNetwork, one at
+    a time as bench_trades runs them."""
+    from corda_tpu_torch.contracts.structures import now_micros
+
+    verifier = (provider.TorchVerifier(device="cuda") if side == "card"
+                else provider.CpuVerifier())
+    net, notary, buyer, seller = nl.make_trade_network(api, verifier)
+    try:
+        trades = nl.build_trades(api, notary, buyer, seller, TRADE_N,
+                                 TRADE_SEED, now_micros())
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = nl.run_mock_trades(api, net, notary, buyer, seller, trades, 1)
+        torch.cuda.synchronize()
+        res["launches"] = dict(kernels.LAUNCHES)
+        # The network's nodes share one verifier: its totals are the run's.
+        res["device_batches"] = getattr(verifier, "device_batches", 0) or 0
+        res["host_batches"] = getattr(verifier, "host_batches", 0) or 0
+        return res
+    finally:
+        net.stop_nodes()
+
+
+def phase_trades(provider, kernels, card):
+    """Phase 23: BASELINE config 2, the trader demo, on the card. (a) In
+    process over localhost TCP: a validating Notary that hosts the wire
+    network map, BankA (the buyer, its indexed vault seeded with
+    TRADE_BALLAST cash states in a second currency) and BankB (the seller),
+    each on its own sqlite with the indexed vault and a web API; BankB
+    issues and notarises TRADE_N papers, BankA self-issues TRADE_N USD
+    cash states, and TRADE_N SellerFlow / BuyerFlow trades run
+    TRADE_IN_FLIGHT at a time, every node on "torch" and then on "cpu";
+    then RPC vault_page walks BankA's whole vault (card side), and the web
+    API and the map are read. (b) The same trades over MockNetwork, one at
+    a time. (c) NotaryChangeFlow moves CHANGE_N DummyMultiOwnerStates from
+    Notary to Notary2. Card outcomes and vault contents must equal the
+    host's."""
+    from corda_tpu_torch.testing import notary_load as nl
+
+    device_min = provider.DEVICE_MIN_SIGS_DEFAULT
+    api = nl.port_api()
+    out = {}
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cts_ballast")
+    try:
+        ballast_db = os.path.join(tmp, "ballast.db")
+        nl.seed_ballast(api, ballast_db, TRADE_BALLAST)
+        out["ballast_s"] = time.perf_counter() - t0
+        log(f"{card} | trade ballast: {TRADE_BALLAST} "
+            f"{nl.BALLAST_CURRENCY} cash states seeded into BankA's vault "
+            f"in {out['ballast_s']:.1f} s")
+        runs = {side: trade_tcp_run(nl, api, kernels, side, ballast_db)
+                for side in ("card", "host")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for side, res in runs.items():
+        check_trades(nl, f"trade tcp {side}", res, runs["host"])
+    check_node_batches("trade tcp card", runs["card"], device_min)
+    walk = runs["card"]["rpc_vault"]
+    want_rows = TRADE_BALLAST + 2 * TRADE_N
+    check(walk["rows"] == walk["distinct"] == runs["card"]["rows"]
+          >= want_rows and walk["rising"]
+          and walk["sums"] == walk["balances"],
+          f"trade rpc: vault_page gave {walk['rows']} rows "
+          f"({walk['distinct']} distinct, rising {walk['rising']}) of "
+          f"{runs['card']['rows']} (at least {want_rows}); sums "
+          f"{walk['sums']} against vault_balances {walk['balances']}")
+    check(runs["host"]["rows"] == runs["card"]["rows"],
+          f"trade tcp: BankA's rows {runs['host']['rows']} (host) != "
+          f"{runs['card']['rows']} (card)")
+    out["tcp"] = {side: dict(trade_summary(res), boot_s=res["boot_s"],
+                             rows=res["rows"], web=res["web"],
+                             map=res["map"],
+                             split=batch_split(res, device_min))
+                  for side, res in runs.items()}
+    out["tcp"]["rpc_vault"] = walk
+    for side in ("card", "host"):
+        log_trades(card, f"trade tcp {side}", out["tcp"][side])
+        log_split(card, f"trade split {side}", out["tcp"][side]["split"],
+                  device_min)
+    log(f"{card} | trade rpc: vault_page walked BankA's {walk['rows']} rows "
+        f"in {walk['pages']} pages of {VAULT_PAGE} in "
+        f"{walk['walk_s'] * 1e3:.1f} ms, no duplicate, no gap, the paged "
+        f"cash = vault_balances {walk['balances']}; web API /api/status and "
+        "/metrics answered on every node; each bank's map lists "
+        f"{out['tcp']['card']['map']['BankA']} / "
+        f"{out['tcp']['card']['map']['BankB']}; boot "
+        f"{runs['card']['boot_s']:.1f} / {runs['host']['boot_s']:.1f} s")
+    out["tcp_s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    mock = {side: trade_mock_run(nl, api, provider, kernels, side)
+            for side in ("card", "host")}
+    for side, res in mock.items():
+        check_trades(nl, f"trade mock {side}", res, mock["host"])
+    check_shared_batches("trade mock card", mock["card"], device_min)
+    out["mock"] = {side: trade_summary(res) for side, res in mock.items()}
+    for side in ("card", "host"):
+        log_trades(card, f"trade mock {side}", out["mock"][side])
+    out["mock_s"] = time.perf_counter() - t1
+
+    t2 = time.perf_counter()
+    change = {}
+    for side in ("card", "host"):
+        verifier = (provider.TorchVerifier(device="cuda") if side == "card"
+                    else provider.CpuVerifier())
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        change[side] = nl.run_notary_change(api, verifier, CHANGE_N,
+                                            CHANGE_SEED)
+        torch.cuda.synchronize()
+        change[side]["launches"] = dict(kernels.LAUNCHES)
+        change[side]["device_batches"] = getattr(verifier,
+                                                 "device_batches", 0) or 0
+        change[side]["host_batches"] = getattr(verifier, "host_batches",
+                                               0) or 0
+    host = change["host"]
+    for side, res in change.items():
+        check(res["outcomes"] == host["outcomes"]
+              and all(o[0] == "ok" for o in res["outcomes"])
+              and res["new_notaries"] == ["Notary2"] * CHANGE_N
+              and res["bob_recorded"] == CHANGE_N
+              and res["committed"] == host["committed"]
+              and len(res["committed"]) == CHANGE_N,
+              f"notary change {side}: {res['outcomes'][:3]}, new notaries "
+              f"{set(res['new_notaries'])}, Bob recorded "
+              f"{res['bob_recorded']}, {len(res['committed'])} committed")
+        check(all(m["verify_device_degraded"] == 0
+                  for m in res["nodes"].values()),
+              f"notary change {side}: a node degraded its device tier")
+    check_shared_batches("notary change card", change["card"], device_min)
+    out["notary_change"] = {side: {
+        "wall_ms": r["wall_s"] * 1e3, "launches": r["launches"],
+        "device_batches": r["device_batches"],
+        "host_batches": r["host_batches"],
+        "nodes": {k: {f: v[f] for f in ("verify_batches", "verify_sigs",
+                                        "largest_batch")}
+                  for k, v in r["nodes"].items()}}
+        for side, r in change.items()}
+    for side, r in out["notary_change"].items():
+        log(f"{card} | notary change {side}: {CHANGE_N} states moved Notary "
+            f"-> Notary2 in {r['wall_ms']:.1f} ms; " + "; ".join(
+                f"{k} {v['verify_sigs']} sigs in {v['verify_batches']} "
+                f"batches (largest {v['largest_batch']})"
+                for k, v in r["nodes"].items())
+            + f"; device batches {r['device_batches']} host "
+            f"{r['host_batches']}; launches verify "
+            f"{r['launches']['ed25519_verify']}")
+    out["notary_change_s"] = time.perf_counter() - t2
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{card} | phase 23 seconds: ballast {out['ballast_s']:.1f}, tcp "
+        f"{out['tcp_s']:.1f} (incl. ballast), mock {out['mock_s']:.1f}, "
+        f"notary change {out['notary_change_s']:.1f}; total "
+        f"{out['seconds']:.1f}")
     return out
 
 
@@ -3593,7 +4049,11 @@ def main() -> int:
     # 22. the Raft notary cluster: in process, sharded, real processes
     raft_res = phase_raft(provider, kernels, node_res, card)
 
-    # 23. kernels line
+    # 23. the trader demo: the indexed vault, the trade flows, the notary
+    # change, the wire network map and the web API
+    trade_res = phase_trades(provider, kernels, card)
+
+    # kernels line
     bound1, by1 = bound_ms(N_MAIN * VERIFY_BYTES,
                            main_res["verify_least_int_ops"])
     bound2, by2 = bound_ms(N_MAIN * CHALLENGE_BYTES,
@@ -3665,6 +4125,7 @@ def main() -> int:
               "batch_sign": sign_res, "resolve": resolve_res,
               "hash_crossover": hash_cross, "sha256_oversize": oversize_res,
               "notary": notary_res, "node": node_res, "raft": raft_res,
+              "trades": trade_res,
               "ptxas": {s: ptxas_summary(_build, s) for s in _build.SOURCES},
               "sass_sha512_challenge": sass2,
               "challenge_least_int_ops": CHALLENGE_INT_OPS,

@@ -1,16 +1,20 @@
-"""Finance layer: fungible asset contracts.
+"""Finance layer: fungible asset contracts and trading flows.
 
 The port's own copies of ``corda_tpu/finance``'s Amount arithmetic, the
-on-ledger asset base and the Cash contract: what the node's vault
-observers read (node/services/vault_observers.py). Commodity and the
-two-party trade flows are not ported yet (ROADMAP.md).
+on-ledger asset base, the Cash, CommercialPaper and Commodity contracts
+and the two-party delivery-versus-payment trade flows. Obligation, the
+deal and rate types, fixable deals and IRS are not ported yet
+(ROADMAP.md).
 """
 
 from .amount import Amount
 from .cash import Cash, CashExit, CashIssue, CashMove, CashState
+from .commodity import Commodity, CommodityContract, CommodityState
 from .on_ledger_asset import OnLedgerAsset
+from .trade import BuyerFlow, SellerFlow, SellerTradeInfo
 
 __all__ = [
     "Amount", "Cash", "CashState", "CashIssue", "CashMove", "CashExit",
-    "OnLedgerAsset",
+    "Commodity", "CommodityContract", "CommodityState", "OnLedgerAsset",
+    "SellerFlow", "BuyerFlow", "SellerTradeInfo",
 ]

@@ -1,8 +1,9 @@
 """L2/L3 flow framework: the programming model and the library flows.
 
 The port's own copies of ``corda_tpu/flows``: the flow API, the notary
-client and services, fetch, resolve, finality and data vending. ``deal``,
-``oracle`` and ``state_replacement`` are not ported yet (ROADMAP.md).
+client and services, fetch, resolve, finality, data vending and the
+notary change (``state_replacement``). ``deal`` and ``oracle`` are not
+ported yet (ROADMAP.md).
 """
 
 from .api import (  # noqa: F401
@@ -32,3 +33,8 @@ from .fetch import FetchAttachmentsFlow, FetchTransactionsFlow  # noqa: F401
 from .resolve import ResolveTransactionsFlow  # noqa: F401
 from .finality import BroadcastTransactionFlow, FinalityFlow  # noqa: F401
 from .data_vending import install_data_vending  # noqa: F401
+from .state_replacement import (  # noqa: F401
+    NotaryChangeAcceptor,
+    NotaryChangeFlow,
+    install_notary_change_acceptor,
+)

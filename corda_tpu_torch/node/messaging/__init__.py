@@ -1,7 +1,7 @@
 """L5a messaging: transport-neutral API and the deterministic in-memory fake.
 
 The port's own copies of ``corda_tpu/node/messaging``; the TCP transport
-is not ported yet (ROADMAP.md).
+is ``node.messaging.tcp``.
 """
 
 from .api import Message, MessagingService, TopicSession, DEFAULT_SESSION_ID  # noqa: F401

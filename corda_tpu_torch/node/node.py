@@ -29,12 +29,14 @@ The port's own copy of ``corda_tpu/node/node.py``. What differs:
 * SIGTERM stops the node cleanly (exit 0), as Ctrl-C does.
 * stop() drains a raft member's apply executor (``quiesce_apply``) and
   ends its thread before the store closes.
-* Features whose modules wait for a later slice (the indexed vault, the
-  wire network map, the web API, mutual TLS, the verifier federation, the
-  sidecar's device stamp) raise ``NotImplementedError`` naming their
-  ROADMAP.md item when configured, before the node opens its store or its
-  listener. Raft notaries (``raft-simple`` / ``raft-validating``) and the
-  sharded notary (``[notary_shards]``) are the reference's branches.
+* Features whose modules wait for a later slice (mutual TLS, the verifier
+  federation, the sidecar's device stamp) raise ``NotImplementedError``
+  naming their ROADMAP.md item when configured, before the node opens its
+  store or its listener. Raft notaries (``raft-simple`` /
+  ``raft-validating``), the sharded notary (``[notary_shards]``), the
+  indexed vault (``[vault] indexed``), the wire network map
+  (``map_service`` / ``map_node``) and the web API (``web_port``) are the
+  reference's branches.
 """
 
 from __future__ import annotations
@@ -118,16 +120,6 @@ def _refuse_unported(config: NodeConfig) -> None:
     later slice of the port, before anything is opened."""
     if config.tls:
         raise not_ported("mutual TLS (tls = true; crypto/x509.py)", "3")
-    if config.vault.indexed or os.environ.get(
-            "CORDA_TPU_VAULT_INDEXED", "") not in ("", "0"):
-        raise not_ported("the indexed vault ([vault] indexed, "
-                         "CORDA_TPU_VAULT_INDEXED; node/services/vault.py)",
-                         "5.5")
-    if config.map_service or config.map_node:
-        raise not_ported("the wire network map (map_service, map_node; "
-                         "node/services/netmap_service.py)", "5.5")
-    if config.web_port is not None:
-        raise not_ported("the web API (web_port; node/webserver.py)", "5.5")
 
 
 class Node:
@@ -240,8 +232,21 @@ class Node:
         self.identity_service = InMemoryIdentityService()
         self.network_map_cache = InMemoryNetworkMapCache()
         key_service = SimpleKeyManagementService([self.key])
-        # The in-memory vault engine ([vault] indexed is refused above).
-        vault_service = NodeVaultService(lambda: set(key_service.keys.keys()))
+        # Vault engine selection: [vault] indexed=true or the env var arms
+        # the sqlite-backed IndexedVaultService (durable rows, O(log n)
+        # queries, watermark incremental boot). Unset = the in-memory
+        # engine, bit-identical to before the vault plane existed.
+        self._vault_indexed = bool(config.vault.indexed) or os.environ.get(
+            "CORDA_TPU_VAULT_INDEXED", "") not in ("", "0")
+        if self._vault_indexed:
+            from .services.vault import IndexedVaultService
+
+            vault_service = IndexedVaultService(
+                self.db, lambda: set(key_service.keys.keys()),
+                softlock_ttl_s=config.vault.softlock_ttl_s)
+        else:
+            vault_service = NodeVaultService(
+                lambda: set(key_service.keys.keys()))
         self.services = ServiceHub(
             identity_service=self.identity_service,
             key_management_service=key_service,
@@ -352,18 +357,23 @@ class Node:
         # The vault is a projection of durable transaction storage: rebuild
         # it so a restarted node sees its unconsumed states (the
         # reference's vault is DB-backed; same post-restart capability).
-        # Stream the whole history through notify_all in bounded batches —
-        # never the full ledger in memory.
+        # Indexed engine: replay only the delta above its persisted
+        # watermark. Legacy engine: stream the whole history through
+        # notify_all in bounded batches — never the full ledger in memory.
         tx_storage = self.services.storage_service.validated_transactions
-        chunk: list = []
-        for _rowid, stx in tx_storage.stream_since(
-                0, batch=config.vault.rebuild_batch):
-            chunk.append(stx)
-            if len(chunk) >= config.vault.rebuild_batch:
+        if self._vault_indexed:
+            self.services.vault_service.rebuild_from(
+                tx_storage, batch=config.vault.rebuild_batch)
+        else:
+            chunk: list = []
+            for _rowid, stx in tx_storage.stream_since(
+                    0, batch=config.vault.rebuild_batch):
+                chunk.append(stx)
+                if len(chunk) >= config.vault.rebuild_batch:
+                    self.services.vault_service.notify_all(chunk)
+                    chunk = []
+            if chunk:
                 self.services.vault_service.notify_all(chunk)
-                chunk = []
-        if chunk:
-            self.services.vault_service.notify_all(chunk)
         # Vault updates join the change feed so RPC push subscribers
         # (explorer) stream ledger activity live, alongside flow events
         # (the reference pushes vaultAndUpdates the same way,
@@ -383,15 +393,32 @@ class Node:
             .subscribe(lambda m: self.smm.changes.append(
                 ("tx_recorded", m.run_id, m.tx_id.bytes)))
         from .services.scheduler import NodeSchedulerService
-        from .services.vault_observers import CashBalanceMetricsObserver
+        from .services.vault_observers import (
+            CashBalanceMetricsObserver,
+            IndexedBalanceMetricsObserver,
+        )
 
         self.scheduler = NodeSchedulerService(
             self.smm, self.services.vault_service)
-        CashBalanceMetricsObserver(self.services.vault_service,
-                                   self.smm.metrics)
+        if self._vault_indexed:
+            # The indexed engine already aggregates balances durably;
+            # publish from its table instead of a second scanning tally.
+            IndexedBalanceMetricsObserver(self.services.vault_service,
+                                          self.smm.metrics)
+        else:
+            CashBalanceMetricsObserver(self.services.vault_service,
+                                       self.smm.metrics)
         from .services.schema import SchemaObserver
 
         self.schema = SchemaObserver(self.services.vault_service, self.db)
+
+        # -- network map directory service (wire tier) ---------------------
+        self.netmap_service = None
+        self.netmap_client = None
+        if config.map_service:
+            from .services.netmap_service import NetworkMapService
+
+            self.netmap_service = NetworkMapService(self.messaging)
 
         install_data_vending(self.smm)
 
@@ -417,6 +444,7 @@ class Node:
                 for u in config.rpc_users)
             self.rpc = RpcDispatcher(self, users)
 
+        self.webserver = None
         self._started = False
         # Elastic resharding: the latest plan seen on the netmap (set by
         # refresh_netmap), and a throttle on the fence-observation poll.
@@ -500,7 +528,33 @@ class Node:
     def start(self) -> "Node":
         """Register in the map, warm the device, restore checkpoints, resume
         flows. Raises if the device's warm-up fails."""
+        # Web API binds here, not in __init__: a constructed-but-unstarted
+        # (or failed) node must not hold a listener or serve half-built
+        # state (reference: Node.kt starts Jetty inside start()).
+        if self.config.web_port is not None and self.webserver is None:
+            from .webserver import NodeWebServer
+
+            self.webserver = NodeWebServer(
+                self, self.config.host, self.config.web_port)
         self.register_and_refresh_netmap()
+        if self.config.map_node and self.config.map_node != self.config.name:
+            # Dynamic directory: the bootstrap file told us where the map
+            # node lives; from here on registration + updates ride the wire
+            # (reference: AbstractNode.registerWithNetworkMap,
+            # AbstractNode.kt:377-411).
+            from .services.netmap_service import NetworkMapClient
+
+            map_info = next(
+                (n for n in self.network_map_cache.party_nodes
+                 if n.legal_identity.name == self.config.map_node), None)
+            if map_info is None:
+                raise RuntimeError(
+                    f"map node {self.config.map_node!r} not in bootstrap map")
+            self.netmap_client = NetworkMapClient(
+                self.messaging, map_info.address, self.network_map_cache,
+                self.identity_service, self.key)
+            self.netmap_client.register(self.info)
+            self.netmap_client.fetch_and_subscribe()
         # The warm must finish BEFORE checkpoint restore runs: smm.start()
         # replays checkpointed flows, and a restored backlog can flush a
         # >= device_min_sigs batch immediately — on a cold device that
@@ -815,6 +869,8 @@ class Node:
         self.uniqueness_provider.reconfigure(int(fence["count"]), epoch)
 
     def stop(self) -> None:
+        if self.webserver is not None:
+            self.webserver.stop()
         svc = self.smm.async_verify
         if svc is not None and not svc.close(timeout=30.0):
             # A feeder blocked inside a wedged device call cannot be

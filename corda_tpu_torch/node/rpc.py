@@ -16,9 +16,7 @@ explicit cursors — idiomatic for a request/reply transport and crash-safe
 The client is deliberately node-free: it opens its own TcpMessaging endpoint,
 so any process that can reach the node's socket can drive it.
 
-The port's own copy of ``corda_tpu/node/rpc.py``. ``vault_page`` raises
-``NotImplementedError`` until the indexed vault (node/services/vault.py)
-is ported; ``node_metrics``'s ``kernel_backend`` stamp is the port's
+The port's own copy of ``corda_tpu/node/rpc.py``. ``node_metrics``'s ``kernel_backend`` stamp is the port's
 (``"cuda"`` when the newest verify ran the card's kernels, ``"torch-cpu"``
 for the plain versions); the client splits ``call`` into ``submit`` and
 ``take_reply``, so an open-loop generator need not wait for each reply.
@@ -153,10 +151,14 @@ class NodeRpcOps:
         next page, or None at the end. The paginated sibling of
         vault_snapshot — a million-state vault streams page by page
         instead of one giant frame."""
-        from . import not_ported
+        from .services.vault import VaultQuery
 
-        raise not_ported("the RPC vault_page (node/services/vault.py)",
-                         "5.5")
+        after = None
+        if after_txhash is not None:
+            after = (bytes(after_txhash), int(after_index))
+        page = self._node.services.vault_service.query(
+            VaultQuery(after=after, page_size=int(page_size)))
+        return (page.states, page.next_cursor)
 
     def vault_balances(self) -> dict:
         """Per-currency unconsumed totals — an O(1) aggregate read on the

@@ -1,8 +1,7 @@
 """Service interfaces — the ServiceHub surface.
 
 The port's own copy of ``corda_tpu/node/services/api.py``. The vault
-query surface imports ``.vault`` lazily, as the original does; that module
-is not ported yet (ROADMAP.md), so those calls raise ImportError.
+query surface imports ``.vault`` lazily, as the original does.
 
 Capability match for the reference's core node-services API (reference:
 core/src/main/kotlin/net/corda/core/node/ServiceHub.kt:22-77 and

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import shutil
 import sqlite3
 import time
 from pathlib import Path
@@ -63,19 +64,59 @@ ELECT_TIMEOUT_S = 60.0  # the in-process clusters' wait for their leaders
 
 
 def port_api() -> SimpleNamespace:
-    """This package's MockNetwork, DummyContract, NotaryClientFlow, Node,
-    NodeConfig, ShardConfig and NodeDatabase."""
+    """This package's classes and functions that the runners here use:
+    the notary workload's (MockNetwork, DummyContract, NotaryClientFlow,
+    Node, NodeConfig, ShardConfig, NodeDatabase), the trader demo's and
+    the notary change's."""
+    from ..contracts.structures import (
+        Command,
+        Issued,
+        StateAndRef,
+        StateRef,
+        Timestamp,
+        TransactionState,
+    )
+    from ..crypto.hashes import SecureHash
+    from ..crypto.keys import KeyPair
+    from ..crypto.party import Party
+    from ..finance.amount import Amount
+    from ..finance.cash import Cash, CashState
+    from ..finance.commercial_paper import CommercialPaper, CPState
+    from ..finance.trade import BuyerFlow, SellerFlow
     from ..flows.notary import NotaryClientFlow
-    from ..node.config import NodeConfig, ShardConfig
+    from ..flows.state_replacement import (
+        NotaryChangeFlow,
+        install_notary_change_acceptor,
+    )
+    from ..node.config import NodeConfig, ShardConfig, VaultConfig
     from ..node.node import Node
     from ..node.services.persistence import NodeDatabase
-    from .dummies import DummyContract
+    from ..node.services.vault import (
+        IndexedVaultService,
+        VaultQuery,
+        seed_states,
+    )
+    from ..serialization.codec import serialize
+    from ..transactions.builder import TransactionBuilder
+    from .dummies import DummyContract, DummyCreate, DummyMultiOwnerState
     from .mock_network import MockNetwork
 
-    return SimpleNamespace(MockNetwork=MockNetwork, DummyContract=DummyContract,
-                           NotaryClientFlow=NotaryClientFlow, Node=Node,
-                           NodeConfig=NodeConfig, ShardConfig=ShardConfig,
-                           NodeDatabase=NodeDatabase)
+    return SimpleNamespace(
+        MockNetwork=MockNetwork, DummyContract=DummyContract,
+        NotaryClientFlow=NotaryClientFlow, Node=Node, NodeConfig=NodeConfig,
+        ShardConfig=ShardConfig, NodeDatabase=NodeDatabase,
+        Command=Command, Issued=Issued, StateAndRef=StateAndRef,
+        StateRef=StateRef, Timestamp=Timestamp,
+        TransactionState=TransactionState, SecureHash=SecureHash,
+        KeyPair=KeyPair, Party=Party, Amount=Amount, Cash=Cash,
+        CashState=CashState, CommercialPaper=CommercialPaper, CPState=CPState,
+        BuyerFlow=BuyerFlow, SellerFlow=SellerFlow,
+        NotaryChangeFlow=NotaryChangeFlow,
+        install_notary_change_acceptor=install_notary_change_acceptor,
+        VaultConfig=VaultConfig, IndexedVaultService=IndexedVaultService,
+        VaultQuery=VaultQuery, seed_states=seed_states, serialize=serialize,
+        TransactionBuilder=TransactionBuilder, DummyCreate=DummyCreate,
+        DummyMultiOwnerState=DummyMultiOwnerState)
 
 
 class TimedVerifier:
@@ -316,16 +357,25 @@ def make_tcp_nodes(api, base_dir, verifier: str, validating: bool) -> tuple:
                 "verifier": verifier}) for name in NODE_NAMES]))
 
 
-def pump_nodes(nodes, done, timeout_s: float = 300.0,
-               round_timeout_s: float = 0.001) -> None:
-    """Round-robin ``run_once`` over ``nodes`` until ``done()``; raises
-    AssertionError after ``timeout_s``."""
+def _settle(step, done, timeout_s: float) -> None:
+    """Call ``step()`` until ``done()``; raises AssertionError after
+    ``timeout_s``."""
     deadline = time.monotonic() + timeout_s
     while not done():
         if time.monotonic() > deadline:
             raise AssertionError("the nodes did not settle")
+        step()
+
+
+def pump_nodes(nodes, done, timeout_s: float = 300.0,
+               round_timeout_s: float = 0.001) -> None:
+    """Round-robin ``run_once`` over ``nodes`` until ``done()``; raises
+    AssertionError after ``timeout_s``."""
+    def step():
         for node in nodes:
             node.run_once(timeout=round_timeout_s)
+
+    _settle(step, done, timeout_s)
 
 
 _COMMITTED_SQL = "SELECT state_ref, consuming FROM committed_states"
@@ -370,6 +420,35 @@ def _stage_delta(after: dict | None, before: dict | None) -> dict:
     return {k: v - before.get(k, 0) for k, v in after.items()}
 
 
+def _stages_before(nodes) -> dict:
+    return {n.identity.name: (dict(n.smm.metrics.get("round_stage_s", {})),
+                              dict(n.smm.metrics.get("round_phase_s", {})))
+            for n in nodes}
+
+
+def _node_record(node, before: dict) -> dict:
+    """A node's verify counts, its verifier's device and host batches and
+    batch sizes (a TimedVerifier's), and its ``round_stage_s`` and
+    ``round_phase_s`` since ``before`` (``_stages_before``)."""
+    timed = node.smm.verifier
+    stage0, phase0 = before[node.identity.name]
+    return {
+        "verify_batches": node.smm.metrics["verify_batches"],
+        "verify_sigs": node.smm.metrics["verify_sigs"],
+        "verify_device_degraded":
+            node.smm.metrics["verify_device_degraded"],
+        "device_batches": getattr(timed, "device_batches", 0) or 0,
+        "host_batches": getattr(timed, "host_batches", 0) or 0,
+        "batch_sizes": list(timed.sizes),
+        "largest_batch": max(timed.sizes, default=0),
+        "verify_s": timed.seconds,
+        "round_stage_s": _stage_delta(
+            node.smm.metrics.get("round_stage_s"), stage0),
+        "round_phase_s": _stage_delta(
+            node.smm.metrics.get("round_phase_s"), phase0),
+    }
+
+
 def run_tcp_workload(api, notary, alice, bob, workload: Workload,
                      timeout_s: float = 300.0, others=()) -> dict:
     """``run_workload`` over TCP nodes from ``make_tcp_nodes``: the moves
@@ -383,9 +462,7 @@ def run_tcp_workload(api, notary, alice, bob, workload: Workload,
     starts = [0.0] * len(stxs)
     ends = [0.0] * len(stxs)
     alice.services.record_transactions(workload.issues)
-    before = {n.config.name: (dict(n.smm.metrics.get("round_stage_s", {})),
-                              dict(n.smm.metrics.get("round_phase_s", {})))
-              for n in nodes}
+    before = _stages_before(nodes)
     handles = [None] * len(stxs)
     t0 = time.perf_counter()
     for r in (range(len(workload.moves)),
@@ -396,25 +473,8 @@ def run_tcp_workload(api, notary, alice, bob, workload: Workload,
                    timeout_s)
     wall_s = time.perf_counter() - t0
     outcomes = [outcome_of(h) for h in handles]
-    per_node = {}
-    for node in nodes:
-        timed = node.smm.verifier
-        stage0, phase0 = before[node.config.name]
-        per_node[node.config.name] = {
-            "verify_batches": node.smm.metrics["verify_batches"],
-            "verify_sigs": node.smm.metrics["verify_sigs"],
-            "verify_device_degraded":
-                node.smm.metrics["verify_device_degraded"],
-            "device_batches": getattr(timed, "device_batches", 0) or 0,
-            "host_batches": getattr(timed, "host_batches", 0) or 0,
-            "batch_sizes": list(timed.sizes),
-            "largest_batch": max(timed.sizes, default=0),
-            "verify_s": timed.seconds,
-            "round_stage_s": _stage_delta(
-                node.smm.metrics.get("round_stage_s"), stage0),
-            "round_phase_s": _stage_delta(
-                node.smm.metrics.get("round_phase_s"), phase0),
-        }
+    per_node = {node.config.name: _node_record(node, before)
+                for node in nodes}
     return {
         "outcomes": outcomes,
         "tx_ids": [bytes(s.id.bytes) for s in stxs],
@@ -643,3 +703,338 @@ def expected_outcomes(workload: Workload) -> list:
              else ("ok",) for i in range(len(workload.moves))]
     kinds += [("NotaryException", "NotaryConflict")] * len(workload.doubles)
     return kinds
+
+
+# --- the trader demo (BASELINE config 2, samples/trader-demo) -------------
+
+# The notary (validating), the buyer and the seller.
+TRADE_NAMES = ("Notary", "BankA", "BankB")
+# bench.py:451-466's terms: a paper of face value 900 USD maturing in a
+# week, sold for 750 USD out of the buyer's 800 USD cash states.
+PAPER_FACE, BUYER_CASH, PRICE = 900, 800, 750
+WEEK_MICROS = 7 * 86_400 * 1_000_000
+TIME_WINDOW_MICROS = 30_000_000  # the issue's timestamp, either side of now
+BALLAST_CURRENCY = "GBP"  # the buyer's ballast, never spent by a trade
+TRADE_RPC_USER = ("bank", "s3cret")  # the banks' RPC login (all permissions)
+
+
+@dataclasses.dataclass
+class Trades:
+    issues: list   # the seller's CommercialPaper issues, not yet notarised
+    cash: list     # the buyer's self-issued USD cash, one state each
+    now_us: int    # the instant the issues are timestamped around
+
+
+def build_trades(api, notary, buyer, seller, n: int, seed: int,
+                 now_us: int) -> Trades:
+    """``n`` papers issued by ``seller`` (issuance references from
+    ``seed``; timestamped around ``now_us``, maturing a week after it)
+    and ``n`` USD cash states self-issued by ``buyer`` (nonces from
+    ``seed``). Given the same keys, seed and ``now_us``, every package
+    builds byte-equal transactions."""
+    rng = np.random.default_rng(seed)
+    refs = rng.integers(0, 2**31, n)
+    nonces = rng.integers(0, 2**62, n)
+    issues, cash = [], []
+    for i in range(n):
+        ref = seller.identity.ref(int(refs[i]).to_bytes(4, "big"))
+        issue = api.CommercialPaper.generate_issue(
+            ref, api.Amount(PAPER_FACE, api.Issued(ref, "USD")),
+            now_us + WEEK_MICROS, notary.identity)
+        issue.set_time(api.Timestamp.around(now_us, TIME_WINDOW_MICROS))
+        issue.sign_with(seller.key)
+        issues.append(issue.to_signed_transaction(
+            check_sufficient_signatures=False))
+        coin = api.Cash.generate_issue(
+            api.Amount(BUYER_CASH, "USD"),
+            buyer.identity.ref(i.to_bytes(4, "big")),
+            buyer.identity.owning_key, notary.identity, nonce=int(nonces[i]))
+        coin.sign_with(buyer.key)
+        cash.append(coin.to_signed_transaction())
+    return Trades(issues, cash, now_us)
+
+
+def make_trade_network(api, verifier):
+    """A MockNetwork with the validating notary, the buyer and the seller
+    of TRADE_NAMES, created in that order; each state machine's verifier
+    a TimedVerifier over ``verifier``."""
+    net = api.MockNetwork(verifier=verifier)
+    notary = net.create_notary_node(TRADE_NAMES[0], validating=True)
+    buyer = net.create_node(TRADE_NAMES[1])
+    seller = net.create_node(TRADE_NAMES[2])
+    for node in (notary, buyer, seller):
+        node.smm.verifier = TimedVerifier(node.smm.verifier)
+    return net, notary, buyer, seller
+
+
+def seed_ballast(api, db_path, n: int) -> None:
+    """Make the buyer's store at ``db_path`` before its node first starts:
+    its seeded identity (``node_seed``) and ``n`` BALLAST_CURRENCY cash
+    states it owns, bulk-loaded into the indexed vault through
+    ``seed_states`` (the bank-day pre-seed path). The rows are shaped as
+    bench_vault_scaling's (bench.py:1181-1189): each a transaction of its
+    own, its amount from an LCG spread over 9,973 values."""
+    name = TRADE_NAMES[1]
+    Path(db_path).parent.mkdir(parents=True, exist_ok=True)
+    db = api.NodeDatabase(Path(db_path))
+    try:
+        key = db.load_or_create_identity(name, node_seed(name))
+        me = api.Party.of(name, key.public)
+        token = api.Issued(me.ref(b"\x00"), BALLAST_CURRENCY)
+        vault = api.IndexedVaultService(db, lambda: {key.public})
+        notary = api.Party.of(TRADE_NAMES[0], api.KeyPair.generate(
+            node_seed(TRADE_NAMES[0])).public)
+
+        def states():
+            for i in range(n):
+                qty = 1 + (i * 6364136223846793005
+                           + 1442695040888963407) % 9973
+                yield api.StateAndRef(
+                    api.TransactionState(api.CashState(
+                        api.Amount(qty, token), me.owning_key), notary),
+                    api.StateRef(api.SecureHash(
+                        i.to_bytes(16, "big") + b"vault-bench-pad!"), 0))
+
+        api.seed_states(vault, states())
+    finally:
+        db.close()
+
+
+def make_trade_nodes(api, base_dir, verifier: str, ballast_db) -> tuple:
+    """(notary, buyer, seller): the nodes of TRADE_NAMES over localhost TCP
+    under ``base_dir``, each with ``verifier`` (a config kind), the
+    indexed vault, a web API on a free port and an identity seeded as
+    ``make_tcp_nodes`` seeds it. The notary is validating and hosts the
+    wire network map; the banks register with it and serve RPC to
+    TRADE_RPC_USER. The buyer's store is a copy of ``ballast_db`` (from
+    ``seed_ballast``). Returns once both banks are registered and have
+    fetched the map."""
+    base_dir = Path(base_dir)
+    (base_dir / TRADE_NAMES[1]).mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(ballast_db, base_dir / TRADE_NAMES[1] / "node.db")
+    common = {"verifier": verifier, "vault": api.VaultConfig(indexed=True),
+              "web_port": 0}
+    user, password = TRADE_RPC_USER
+    bank = {"map_node": TRADE_NAMES[0], "rpc_users": (
+        {"username": user, "password": password, "permissions": ["ALL"]},),
+        **common}
+    nodes = _start_nodes(api, base_dir, [
+        (TRADE_NAMES[0], {"notary": "validating", "map_service": True,
+                          **common}),
+        (TRADE_NAMES[1], bank), (TRADE_NAMES[2], bank)])
+    pump_nodes(nodes, lambda: all(n.netmap_client.registered
+                                  and n.netmap_client.fetched
+                                  for n in nodes[1:]), 60.0)
+    return tuple(nodes)
+
+
+def _committed_of(notary) -> dict:
+    db = getattr(notary, "db", None)
+    if db is not None:
+        return committed_inputs(notary)
+    return {(bytes(ref.txhash.bytes), ref.index): bytes(tx.id.bytes)
+            for ref, tx in notary.uniqueness_provider._committed.items()}
+
+
+def vault_record(api, node, now_us: int) -> dict:
+    """The node's USD cash and its papers: ``states`` as sorted (txhash,
+    index, TransactionState blob), ``contents`` as the sorted blobs of the
+    state data with each paper's maturity taken relative to ``now_us``
+    (equal between runs timestamped at different instants), and the
+    vault's ``balances``."""
+    vault = node.services.vault_service
+    sars = list(vault.iter_unconsumed(api.CPState))
+    cursor = None
+    while True:
+        page = vault.query(api.VaultQuery(currency="USD", after=cursor,
+                                          page_size=4096))
+        sars.extend(page.states)
+        cursor = page.next_cursor
+        if cursor is None:
+            break
+    contents = []
+    for sar in sars:
+        data = sar.state.data
+        if isinstance(data, api.CPState):
+            data = dataclasses.replace(
+                data, maturity_micros=data.maturity_micros - now_us)
+        contents.append(api.serialize(data).bytes)
+    return {
+        "states": sorted((bytes(s.ref.txhash.bytes), s.ref.index,
+                          api.serialize(s.state).bytes) for s in sars),
+        "contents": sorted(contents),
+        "papers": sum(isinstance(s.state.data, api.CPState) for s in sars),
+        "balances": dict(vault.balances()),
+    }
+
+
+def _trade_outcome(handle) -> tuple:
+    try:
+        final = handle.result.result()
+    except Exception as e:  # noqa: BLE001 -- the outcome is the record
+        error = getattr(e, "error", None)
+        return (type(e).__name__,
+                type(error).__name__ if error is not None else None)
+    return ("ok", bytes(final.id.bytes))
+
+
+def _run_trades(api, step, nodes, trades: Trades, in_flight: int,
+                timeout_s: float) -> dict:
+    notary, buyer, seller = nodes
+    t_issue = time.perf_counter()
+    issued = [seller.start_flow(api.NotaryClientFlow(stx))
+              for stx in trades.issues]
+    _settle(step, lambda: all(h.result.done for h in issued), timeout_s)
+    papers = []
+    for stx, h in zip(trades.issues, issued):
+        notarised = stx.with_additional_signature(h.result.result())
+        seller.services.record_transactions([notarised])
+        papers.append(notarised.tx.out_ref(0))
+    buyer.services.record_transactions(trades.cash)
+    buyer.smm.register_flow_initiator(
+        "SellerFlow", lambda party: api.BuyerFlow(
+            party, api.Amount(PRICE, "USD"), notary.identity))
+    issue_s = time.perf_counter() - t_issue
+    n = len(papers)
+    starts, ends = [0.0] * n, [0.0] * n
+    handles: list = [None] * n
+    before = _stages_before(nodes)
+    pending: set = set()
+    t0 = time.perf_counter()
+    k = 0
+    deadline = time.monotonic() + timeout_s
+    while k < n or pending:
+        while k < n and len(pending) < in_flight:
+            starts[k] = time.perf_counter()
+            handles[k] = seller.start_flow(api.SellerFlow(
+                buyer.identity, papers[k], api.Amount(PRICE, "USD")))
+            pending.add(k)
+            k += 1
+        step()
+        for j in [j for j in pending if handles[j].result.done]:
+            ends[j] = time.perf_counter()
+            pending.discard(j)
+        if time.monotonic() > deadline:
+            raise AssertionError("the trades did not settle")
+    outcomes = [_trade_outcome(h) for h in handles]
+    wall_s = time.perf_counter() - t0
+    # The buyer records the paper from the seller's finality broadcast.
+    settled = sum(o[0] == "ok" for o in outcomes)
+    _settle(step, lambda: vault_record(api, buyer, trades.now_us)["papers"]
+            >= settled, timeout_s)
+    trade_inputs = {}
+    for h, o in zip(handles, outcomes):
+        if o[0] == "ok":
+            for ref in h.result.result().tx.inputs:
+                trade_inputs[(bytes(ref.txhash.bytes), ref.index)] = o[1]
+    return {
+        "outcomes": outcomes,
+        "paper_ids": [bytes(p.ref.txhash.bytes) for p in papers],
+        "flow_s": [e - s for s, e in zip(starts, ends)],
+        "wall_s": wall_s,
+        "issue_s": issue_s,
+        "settled": settled,
+        "committed": _committed_of(notary),
+        "trade_inputs": trade_inputs,
+        "vaults": {node.identity.name: vault_record(api, node, trades.now_us)
+                   for node in (buyer, seller)},
+        "nodes": {node.identity.name: _node_record(node, before)
+                  for node in nodes},
+    }
+
+
+def run_mock_trades(api, net, notary, buyer, seller, trades: Trades,
+                    in_flight: int, timeout_s: float = 300.0) -> dict:
+    """The trader demo over ``make_trade_network``'s MockNetwork, as
+    bench_trades composes it (bench.py:437-469): the seller notarises its
+    issues and records them, the buyer records its cash and answers
+    ``SellerFlow`` with ``BuyerFlow``; then each paper is sold for PRICE,
+    ``in_flight`` trades started at a time and the network run until they
+    finish. Returns each trade's outcome (``("ok", settled tx id)`` or the
+    exception's names) and start-to-result time, the notary's committed
+    inputs beside the settled trades' inputs, the two banks'
+    ``vault_record`` and each node's verify record."""
+    return _run_trades(api, net.run_network, (notary, buyer, seller), trades,
+                       in_flight, timeout_s)
+
+
+def run_tcp_trades(api, notary, buyer, seller, trades: Trades,
+                   in_flight: int, timeout_s: float = 600.0) -> dict:
+    """``run_mock_trades`` over ``make_trade_nodes``' TCP nodes, pumped
+    round-robin with ``run_once``: a trade starts as soon as one of the
+    ``in_flight`` before it has finished."""
+    nodes = (notary, buyer, seller)
+
+    def step():
+        for node in nodes:
+            node.run_once(timeout=0.001)
+
+    return _run_trades(api, step, nodes, trades, in_flight, timeout_s)
+
+
+# --- the notary change (flows/state_replacement.py) -----------------------
+
+CHANGE_NAMES = ("Notary", "Notary2", "Alice", "Bob")
+
+
+def run_notary_change(api, verifier, n: int, seed: int) -> dict:
+    """Move ``n`` DummyMultiOwnerStates co-owned by Alice and Bob (magic
+    numbers from ``seed``) from the validating Notary to the validating
+    Notary2 through ``NotaryChangeFlow`` started on Alice, all in one
+    burst over a MockNetwork whose state machines verify through
+    ``verifier``; Bob accepts through ``install_notary_change_acceptor``.
+    Returns each flow's outcome (``("ok", replacement tx id)`` or the
+    exception's names), the old notary's committed inputs, what Bob
+    recorded and each node's verify record."""
+    net = api.MockNetwork(verifier=verifier)
+    try:
+        old = net.create_notary_node(CHANGE_NAMES[0], validating=True)
+        new = net.create_notary_node(CHANGE_NAMES[1], validating=True)
+        alice = net.create_node(CHANGE_NAMES[2])
+        bob = net.create_node(CHANGE_NAMES[3])
+        nodes = (old, new, alice, bob)
+        for node in nodes:
+            node.smm.verifier = TimedVerifier(node.smm.verifier)
+        api.install_notary_change_acceptor(bob.smm)
+        magics = np.random.default_rng(seed).integers(0, 2**31, n)
+        owners = (alice.identity.owning_key, bob.identity.owning_key)
+        issued = []
+        for magic in magics:
+            tx = api.TransactionBuilder(notary=old.identity)
+            tx.add_output_state(api.DummyMultiOwnerState(int(magic), owners))
+            tx.add_command(api.Command(api.DummyCreate(), owners[:1]))
+            tx.sign_with(alice.key)
+            stx = tx.to_signed_transaction()
+            alice.services.record_transactions([stx])
+            bob.services.record_transactions([stx])
+            issued.append(stx)
+        before = _stages_before(nodes)
+        t0 = time.perf_counter()
+        handles = [alice.start_flow(api.NotaryChangeFlow(
+            stx.tx.out_ref(0), new.identity)) for stx in issued]
+        net.run_network()
+        wall_s = time.perf_counter() - t0
+        outcomes = []
+        for h in handles:
+            try:
+                outcomes.append(("ok", bytes(h.result.result().ref.txhash
+                                             .bytes)))
+            except Exception as e:  # noqa: BLE001 -- the outcome is the record
+                outcomes.append((type(e).__name__,))
+        bob_txs = bob.services.storage_service.validated_transactions
+        return {
+            "outcomes": outcomes,
+            "new_notaries": [h.result.result().state.notary.name
+                             for h, o in zip(handles, outcomes)
+                             if o[0] == "ok"],
+            "bob_recorded": sum(
+                bob_txs.get_transaction(api.SecureHash(o[1])) is not None
+                for o in outcomes if o[0] == "ok"),
+            "committed": _committed_of(old),
+            "issue_ids": [bytes(s.id.bytes) for s in issued],
+            "wall_s": wall_s,
+            "nodes": {node.identity.name: _node_record(node, before)
+                      for node in nodes},
+        }
+    finally:
+        net.stop_nodes()

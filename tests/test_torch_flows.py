@@ -1,7 +1,8 @@
 """The port's flow framework end to end over its MockNetwork: the mirror of
 tests/test_flows_e2e.py's TestNotarisation, TestFinality,
-TestSingleSigPump, TestRecovery, TestKillAtEveryStep and TestSessionErrors
-(TestNotaryChange needs state_replacement, which is not ported yet).
+TestSingleSigPump, TestRecovery, TestKillAtEveryStep, TestSessionErrors and
+TestNotaryChange (flows/state_replacement.py), and a notary-change burst
+held to the JAX package's.
 
 Every case runs twice: with the host tier (``CpuVerifier()``) and with the
 device path's plain PyTorch versions (``TorchVerifier(device="cpu",
@@ -267,3 +268,132 @@ class TestSessionErrors:
         net.run_network()
         with pytest.raises(Exception):
             handle.result.result()
+
+
+class ForgedNotaryChange(FlowLogic):
+    """Sends a ReplacementProposal under the notary change's initiator name
+    (not registered: the real flow holds that name)."""
+
+    flow_name = "NotaryChangeFlow"
+
+    def __init__(self, other, proposal):
+        self.other = other
+        self.proposal = proposal
+
+    def call(self):
+        yield self.send_and_receive(self.other, self.proposal, object)
+
+
+class TestNotaryChange:
+    def test_notary_change_unanimous_consent(self, net):
+        """A shared state moves to a new notary once every participant signs
+        (reference: NotaryChangeTests.kt over AbstractStateReplacementFlow)."""
+        from corda_tpu_torch.contracts.structures import Command
+        from corda_tpu_torch.flows import (
+            NotaryChangeFlow,
+            install_notary_change_acceptor,
+        )
+        from corda_tpu_torch.testing.dummies import (
+            DummyCreate,
+            DummyMultiOwnerState,
+        )
+        from corda_tpu_torch.transactions.builder import TransactionBuilder
+
+        notary_a = net.create_notary_node("NotaryA")
+        notary_b = net.create_notary_node("NotaryB")
+        alice = net.create_node("Alice")
+        bob = net.create_node("Bob")
+        install_notary_change_acceptor(bob.smm)
+
+        # A state co-owned by alice and bob, on notary A.
+        state = DummyMultiOwnerState(
+            7, (alice.identity.owning_key, bob.identity.owning_key))
+        tx = TransactionBuilder(notary=notary_a.identity)
+        tx.add_output_state(state)
+        tx.add_command(Command(DummyCreate(), (alice.identity.owning_key,)))
+        tx.sign_with(alice.key)
+        issue_stx = tx.to_signed_transaction()
+        alice.record_transaction(issue_stx)
+        bob.record_transaction(issue_stx)
+
+        handle = alice.start_flow(NotaryChangeFlow(
+            issue_stx.tx.out_ref(0), notary_b.identity))
+        net.run_network()
+        new_ref = handle.result.result()
+        assert new_ref.state.notary == notary_b.identity
+        assert new_ref.state.data == state
+        # The old notary committed the consumed input exactly once.
+        assert notary_a.uniqueness_provider.committed_count == 1
+        # Both parties recorded the replacement.
+        for node in (alice, bob):
+            assert node.services.storage_service.validated_transactions \
+                .get_transaction(new_ref.ref.txhash) is not None
+
+    def test_notary_change_same_notary_rejected(self, net):
+        from corda_tpu_torch.flows.state_replacement import (
+            NotaryChangeFlow,
+            StateReplacementException,
+        )
+
+        notary, alice, bob = make_parties(net)
+        issue_stx = issue_to(net, alice, notary.identity, magic=77)
+        handle = alice.start_flow(NotaryChangeFlow(
+            issue_stx.tx.out_ref(0), notary.identity))
+        net.run_network()
+        with pytest.raises(StateReplacementException):
+            handle.result.result()
+
+    def test_acceptor_refuses_a_proposal_that_is_not_a_notary_change(
+            self, net):
+        """Bob's acceptor signs only a notary-change transaction of a state
+        he co-owns: for a plain move dressed as a proposal it ends without
+        signing, the instigator's flow fails, and nothing is committed."""
+        from corda_tpu_torch.flows import FlowSessionException
+        from corda_tpu_torch.flows.state_replacement import (
+            ReplacementProposal,
+            install_notary_change_acceptor,
+        )
+
+        notary, alice, bob = make_parties(net)
+        install_notary_change_acceptor(bob.smm)
+        issue_stx = issue_to(net, alice, notary.identity, magic=78)
+        move = move_to(issue_stx, bob, alice)
+
+        handle = alice.start_flow(ForgedNotaryChange(
+            bob.identity, ReplacementProposal(
+                issue_stx.tx.out_ref(0).ref, notary.identity, move)))
+        net.run_network()
+        with pytest.raises(FlowSessionException, match="ended before"):
+            handle.result.result()
+        assert notary.uniqueness_provider.committed_count == 0
+
+
+@pytest.mark.parametrize("kind", sorted(VERIFIERS))
+def test_notary_change_burst_equals_the_jax_package(kind):
+    """Eight states of Alice and Bob moved from one validating notary to
+    another in one burst (notary_load.run_notary_change) in each package:
+    the same replacement ids, the same committed inputs at the old notary,
+    Bob recording every replacement, the same signature counts."""
+    import importlib
+    from types import SimpleNamespace
+
+    from corda_tpu.crypto.provider import CpuVerifier as JaxCpuVerifier
+    from corda_tpu_torch.testing import notary_load as nl
+
+    port = nl.port_api()
+    jax = SimpleNamespace(**{
+        name: getattr(importlib.import_module(obj.__module__.replace(
+            "corda_tpu_torch.", "corda_tpu.", 1)), obj.__name__)
+        for name, obj in vars(port).items()})
+    theirs = nl.run_notary_change(jax, JaxCpuVerifier(), 8, 5)
+    ours = nl.run_notary_change(port, VERIFIERS[kind](), 8, 5)
+    assert [o[0] for o in ours["outcomes"]] == ["ok"] * 8
+    assert ours["new_notaries"] == ["Notary2"] * 8
+    assert ours["bob_recorded"] == 8
+    for key in ("outcomes", "committed", "issue_ids", "new_notaries"):
+        assert ours[key] == theirs[key], key
+    assert set(ours["committed"].values()) == {o[1] for o in
+                                               ours["outcomes"]}
+    for name in nl.CHANGE_NAMES:
+        assert ours["nodes"][name]["verify_sigs"] == \
+            theirs["nodes"][name]["verify_sigs"], name

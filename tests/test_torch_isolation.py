@@ -8,8 +8,10 @@ CPU through the device path's plain versions and through the host tier,
 primes the ids of a small transaction wave through the SHA-256 kernel's
 plain version, notarises through the port's MockNetwork with both notary
 kinds, through three port ``Node``s over localhost TCP and sqlite, and
-through a raft-simple cluster of three port ``Node``s, and must end with
-neither jax nor corda_tpu loaded.
+through a raft-simple cluster of three port ``Node``s, trades papers for
+cash over the MockNetwork and over three port ``Node``s on the indexed
+vault, changes two states' notary, and must end with neither jax nor
+corda_tpu loaded.
 """
 
 import ast
@@ -79,6 +81,13 @@ NOTARY_PATH_MODULES = [
     # The raft slice: the whole raft.py and sharding.py (listed above), the
     # Node's raft wiring (node/node.py), the driver's shard clusters and
     # the builtin fault plans (testing/faults.py).
+    # The vault and trader-demo slice: the indexed vault, the wire map, the
+    # web API, the trade flows and contracts, the notary change and the
+    # test DSL the contracts' tests use.
+    "node/services/vault.py", "node/services/netmap_service.py",
+    "node/webserver.py", "finance/commercial_paper.py", "finance/trade.py",
+    "finance/commodity.py", "flows/state_replacement.py",
+    "testing/identities.py", "testing/ledger_dsl.py",
 ]
 
 
@@ -165,6 +174,28 @@ with tempfile.TemporaryDirectory() as tmp:
     finally:
         for node in (*members, a, b):
             node.stop()
+# The trader demo over the MockNetwork and over three port Nodes on the
+# indexed vault (web API, wire map, ballast in the buyer's vault), and a
+# notary change.
+from corda_tpu_torch.contracts.structures import now_micros
+net, n, a, b = nl.make_trade_network(api, provider.CpuVerifier())
+trades = nl.build_trades(api, n, a, b, 2, 3, now_micros())
+res = nl.run_mock_trades(api, net, n, a, b, trades, 2)
+assert res["settled"] == 2 and res["committed"] == res["trade_inputs"], res
+net.stop_nodes()
+with tempfile.TemporaryDirectory() as tmp:
+    nl.seed_ballast(api, tmp + "/ballast.db", 10)
+    nodes = nl.make_trade_nodes(api, tmp + "/run", "cpu", tmp + "/ballast.db")
+    try:
+        trades = nl.build_trades(api, *nodes, 2, 3, now_micros())
+        res = nl.run_tcp_trades(api, *nodes, trades, 2, timeout_s=60.0)
+        assert res["settled"] == 2, res["outcomes"]
+        assert res["vaults"]["BankA"]["papers"] == 2
+    finally:
+        for node in nodes:
+            node.stop()
+res = nl.run_notary_change(api, provider.CpuVerifier(), 2, 3)
+assert [o[0] for o in res["outcomes"]] == ["ok", "ok"], res["outcomes"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu"))
 assert not bad, bad

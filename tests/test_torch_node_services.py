@@ -2,9 +2,9 @@
 tracking, the change feed and the flow-to-transaction mappings.
 
 The port's mirror of ``tests/test_node_services.py`` and
-``tests/test_tx_mapping.py``, on port nodes with ``verifier = "cpu"``. The
-wire network map test becomes a check that ``map_service`` / ``map_node``
-raise until that service is ported. Test-local codec classes are registered
+``tests/test_tx_mapping.py``, on port nodes with ``verifier = "cpu"``; the
+wire network map also between one package's map node and the other's
+members. Test-local codec classes are registered
 only while this module's tests run: other test modules read the port's
 registry as the set of its own classes.
 """
@@ -339,17 +339,116 @@ def test_progress_tracker_stream_and_children():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("knob", [{"map_service": True},
-                                  {"map_node": "MapNode"}])
-def test_netmap_service_raises_until_ported(tmp_path, knob):
-    """The wire network map (node/services/netmap_service.py) waits for a
-    later slice: a node configured to host or use it raises, naming its
-    ROADMAP item, before it opens a store or a listener."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 5.5"):
-        Node(NodeConfig(name="MapNode", base_dir=tmp_path / "MapNode",
-                        network_map=tmp_path / "netmap.json",
-                        verifier="cpu", **knob))
-    assert not (tmp_path / "MapNode").exists()
+def test_netmap_service_register_fetch_subscribe(tmp_path):
+    """A map node serves signed registrations; late joiners learn earlier
+    nodes over the wire (not from the bootstrap file), and registrations not
+    signed by the registering identity are rejected."""
+    def node(name, **kw):
+        return Node(NodeConfig(
+            name=name, base_dir=tmp_path / name,
+            network_map=tmp_path / "netmap.json", verifier="cpu",
+            **kw)).start()
+
+    map_node = node("MapNode", map_service=True)
+    a = node("NodeA", map_node="MapNode")
+    nodes = [map_node, a]
+    try:
+        pump_until(nodes, lambda: a.netmap_client.registered
+                   and a.netmap_client.fetched)
+        assert map_node.netmap_service.node_count == 1
+
+        # NodeB never touches the bootstrap file after boot; it learns NodeA
+        # through fetch, and NodeA learns NodeB through the pushed update.
+        b = node("NodeB", map_node="MapNode")
+        nodes.append(b)
+        pump_until(nodes, lambda: b.netmap_client.registered)
+        pump_until(nodes, lambda: any(
+            n.legal_identity.name == "NodeA"
+            for n in b.network_map_cache.party_nodes))
+        pump_until(nodes, lambda: any(
+            n.legal_identity.name == "NodeB"
+            for n in a.network_map_cache.party_nodes))
+
+        # Forged registration: NodeB signs a registration claiming NodeA's
+        # identity but pointing at B's OWN address (session hijack attempt).
+        # Rejected: the map's entry and serial for NodeA must not change.
+        from dataclasses import replace as _replace
+
+        from corda_tpu_torch.crypto.signed_data import SignedData
+        from corda_tpu_torch.node.messaging.api import TopicSession
+        from corda_tpu_torch.node.services.netmap_service import (
+            ADD,
+            NodeRegistration,
+            RegistrationRequest,
+        )
+        from corda_tpu_torch.serialization.codec import serialize
+
+        serial_before = map_node.netmap_service.serial_of("NodeA")
+        forged_info = _replace(a.info, address=b.messaging.my_address)
+        reg = NodeRegistration(forged_info, 999, ADD)
+        blob = serialize(reg)
+        signed = SignedData(blob, b.key.sign(blob.bytes))  # B signs as A
+        b.messaging.send(
+            TopicSession("platform.netmap", 0),
+            serialize(RegistrationRequest(
+                signed, b.messaging.my_address)).bytes,
+            map_node.messaging.my_address)
+        for _ in range(30):
+            for n in nodes:
+                n.run_once(timeout=0.005)
+        stored = map_node.netmap_service.get_node("NodeA")
+        assert stored is not None
+        assert stored.address == a.messaging.my_address  # NOT hijacked
+        assert map_node.netmap_service.serial_of("NodeA") == serial_before
+        # A legitimate re-register (next serial) still succeeds.
+        a.netmap_client.register(a.info)
+        pump_until(nodes, lambda:
+                   map_node.netmap_service.serial_of("NodeA")
+                   == serial_before + 1)
+    finally:
+        for n in nodes:
+            n.stop()
+
+
+@pytest.mark.parametrize("map_host", ["jax", "port"])
+def test_wire_map_across_the_packages(tmp_path, map_host):
+    """One package's map node, the other's members: registrations, fetches
+    and pushed updates interoperate over TCP (the netmap messages carry
+    the same wire names in both packages), and a member's cache learns the
+    other member through the map."""
+    import importlib
+
+    def node(pkg, name, **kw):
+        config = importlib.import_module(f"{pkg}.node.config")
+        node_mod = importlib.import_module(f"{pkg}.node.node")
+        return node_mod.Node(config.NodeConfig(
+            name=name, base_dir=tmp_path / name,
+            network_map=tmp_path / "netmap.json", verifier="cpu",
+            **kw)).start()
+
+    host_pkg, member_pkg = (("corda_tpu", "corda_tpu_torch")
+                            if map_host == "jax"
+                            else ("corda_tpu_torch", "corda_tpu"))
+    host = node(host_pkg, "MapNode", map_service=True)
+    nodes = [host]
+    try:
+        for name in ("MemberA", "MemberB"):
+            nodes.append(node(member_pkg, name, map_node="MapNode"))
+        a, b = nodes[1:]
+        pump_until(nodes, lambda: all(m.netmap_client.registered
+                                      and m.netmap_client.fetched
+                                      for m in (a, b)))
+        assert host.netmap_service.node_count == 2
+        for member in (a, b):
+            stored = host.netmap_service.get_node(member.config.name)
+            assert stored.legal_identity.owning_key.to_base58_string() == \
+                member.identity.owning_key.to_base58_string()
+        pump_until(nodes, lambda: any(
+            n.legal_identity.name == "MemberB"
+            for n in a.network_map_cache.party_nodes))
+    finally:
+        for n in nodes:
+            n.stop()
 
 
 def test_notarisation_emits_progress_events(tmp_path):

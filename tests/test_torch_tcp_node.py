@@ -524,15 +524,11 @@ from corda_tpu_torch.node.config import VaultConfig  # noqa: E402
 
 
 @pytest.mark.parametrize("kw, item", [
-    ({"vault": VaultConfig(indexed=True)}, "5.5"),
-    ({"map_service": True}, "5.5"),
-    ({"web_port": 0}, "5.5"),
     ({"tls": True}, "3"),
     ({"batch": BatchConfig(federation_hosts="h1:1,h2:2")}, "6"),
     ({"batch": BatchConfig(sidecar="sidecar.sock", sidecar_devices=2)},
      "6"),
-], ids=["vault.indexed", "map_service", "web_port", "tls",
-        "federation_hosts", "sidecar_devices"])
+], ids=["tls", "federation_hosts", "sidecar_devices"])
 def test_unported_feature_raises_naming_its_item(tmp_path, kw, item):
     config = NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
                         network_map=tmp_path / "netmap.json",
@@ -543,8 +539,7 @@ def test_unported_feature_raises_naming_its_item(tmp_path, kw, item):
     assert not (tmp_path / "N").exists()  # nothing was opened
 
 
-@pytest.mark.parametrize("env", ["CORDA_TPU_VAULT_INDEXED",
-                                 "CORDA_TPU_FEDERATION"])
+@pytest.mark.parametrize("env", ["CORDA_TPU_FEDERATION"])
 def test_unported_feature_env_raises(tmp_path, monkeypatch, env):
     monkeypatch.setenv(env, "1")
     with pytest.raises(NotImplementedError, match="queue 1 item"):
@@ -553,13 +548,123 @@ def test_unported_feature_env_raises(tmp_path, monkeypatch, env):
                         verifier="cpu"))
 
 
-def test_rpc_vault_page_raises_until_the_indexed_vault(tmp_path):
+# ---------------------------------------------------------------------------
+# The indexed vault, the wire map and the web API: the reference's branches
+# ---------------------------------------------------------------------------
+
+
+def test_vault_indexed_config_boots_the_indexed_engine(tmp_path):
+    """[vault] indexed = true: the sqlite IndexedVaultService, its tables in
+    the node's own store, and the balance gauges read from its aggregate
+    table."""
+    from corda_tpu_torch.node.services.vault import IndexedVaultService
+
+    node = make_node(tmp_path, "Ix", vault=VaultConfig(indexed=True))
+    try:
+        vault = node.services.vault_service
+        assert isinstance(vault, IndexedVaultService)
+        stx = issue_and_move(node, node.identity, magic=3)
+        assert len(vault) == 1 and vault.watermark > 0
+        with node.db.lock:
+            tables = {r[0] for r in node.db.conn.execute(
+                "SELECT name FROM sqlite_master WHERE type = 'table'")}
+        assert {"vault_states", "vault_participants",
+                "vault_balances"} <= tables
+        assert stx.tx.inputs[0] == vault.current_vault.states[0].ref
+    finally:
+        node.stop()
+
+
+@pytest.mark.parametrize("value, indexed", [("1", True), ("0", False)])
+def test_vault_indexed_env_picks_the_engine(tmp_path, monkeypatch, value,
+                                            indexed):
+    """CORDA_TPU_VAULT_INDEXED arms the indexed engine as the reference
+    reads it ("" and "0" leave the in-memory engine)."""
+    from corda_tpu_torch.node.services.vault import IndexedVaultService
+
+    monkeypatch.setenv("CORDA_TPU_VAULT_INDEXED", value)
+    node = make_node(tmp_path, "Env")
+    try:
+        assert isinstance(node.services.vault_service,
+                          IndexedVaultService) is indexed
+    finally:
+        node.stop()
+
+
+def test_map_service_node_hosts_the_wire_map(tmp_path):
+    """map_service = true: the node serves the wire network map; a node
+    naming it in map_node registers there at start() and fetches the map."""
+    from corda_tpu_torch.node.services.netmap_service import (
+        NetworkMapClient,
+        NetworkMapService,
+    )
+
+    host = make_node(tmp_path, "MapHost", map_service=True)
+    nodes = [host]
+    try:
+        assert isinstance(host.netmap_service, NetworkMapService)
+        assert host.netmap_client is None  # the map node does not register
+        member = make_node(tmp_path, "Member", map_node="MapHost")
+        nodes.append(member)
+        assert isinstance(member.netmap_client, NetworkMapClient)
+        assert member.netmap_service is None
+        pump_until(nodes, lambda: member.netmap_client.registered
+                   and member.netmap_client.fetched)
+        assert host.netmap_service.get_node("Member").address == \
+            member.messaging.my_address
+    finally:
+        for n in nodes:
+            n.stop()
+
+
+def test_map_node_missing_from_the_bootstrap_map_fails_start(tmp_path):
+    with pytest.raises(RuntimeError, match="not in bootstrap map"):
+        make_node(tmp_path, "Lost", map_node="Nowhere")
+
+
+def test_web_port_binds_in_start_and_stops_with_the_node(tmp_path):
+    """web_port: the web API binds in start(), never in the constructor,
+    and closes in stop()."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    config = NodeConfig(name="Web", base_dir=tmp_path / "Web", port=0,
+                        network_map=tmp_path / "netmap.json",
+                        verifier="cpu", web_port=0)
+    node = Node(config)
+    assert node.webserver is None
+    node.start()
+    port = node.webserver.port
+    try:
+        status = json.load(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/api/status", timeout=10))
+        assert status == {"name": "Web",
+                          "address": str(node.messaging.my_address),
+                          "flows_in_flight": 0}
+    finally:
+        node.stop()
+    with pytest.raises(urllib.error.URLError):
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/api/status",
+                               timeout=2)
+
+
+@pytest.mark.parametrize("indexed", [True, False], ids=["indexed", "memory"])
+def test_rpc_vault_page_walks_the_vault(tmp_path, indexed):
+    """RPC vault_page: keyset pages over the node's vault, each ref once,
+    in (txhash, index) order, on either engine; vault_balances beside it."""
     import threading
 
-    from corda_tpu_torch.node.rpc import RpcClient, RpcError
+    from corda_tpu_torch.node.rpc import RpcClient
 
-    node = make_node(tmp_path, "RpcNode", rpc_users=(
-        {"username": "ops", "password": "pw", "permissions": ["ALL"]},))
+    node = make_node(tmp_path, "RpcNode", vault=VaultConfig(indexed=indexed),
+                     rpc_users=({"username": "ops", "password": "pw",
+                                 "permissions": ["ALL"]},))
+    for magic in range(7):
+        builder = DummyContract.generate_initial(
+            node.identity.ref(bytes([magic])), magic, node.identity)
+        builder.sign_with(node.key)
+        node.services.record_transactions([builder.to_signed_transaction()])
     stop = threading.Event()
     pumper = threading.Thread(
         target=lambda: [node.run_once(timeout=0.01)
@@ -567,9 +672,21 @@ def test_rpc_vault_page_raises_until_the_indexed_vault(tmp_path):
     pumper.start()
     client = RpcClient(node.messaging.my_address, "ops", "pw", timeout=10.0)
     try:
-        with pytest.raises(RpcError, match=r"NotImplementedError.*item 5.5"):
-            client.call("vault_page")
-        assert client.call("vault_snapshot") == ()
+        keys, cursor, pages = [], None, 0
+        while True:
+            states, cursor = client.call(
+                "vault_page", None if cursor is None else cursor[0],
+                0 if cursor is None else cursor[1], 3)
+            keys.extend((s.ref.txhash.bytes, s.ref.index) for s in states)
+            pages += 1
+            if cursor is None:
+                break
+        assert pages == 3 and len(keys) == 7
+        assert keys == sorted(set(keys))
+        assert sorted(keys) == sorted(
+            (s.ref.txhash.bytes, s.ref.index)
+            for s in client.call("vault_snapshot"))
+        assert client.call("vault_balances") == {}  # no cash here
         metrics = client.call("node_metrics")
         assert metrics["verifier"] == "cpu-openssl"
         assert metrics["verify_device_ready"] is None  # nothing to warm
