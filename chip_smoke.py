@@ -200,10 +200,47 @@ Phases, in order; any failure exits non-zero and prints no result:
                  and Bob from Notary to Notary2, card and host; outcomes
                  equal, every batch at or above the crossover on the
                  card. Trades/s and each trade's start-to-result time.
- 24. the verify kernel's registers, static SASS counts, resident blocks
+ 24. simm     -- BASELINE config 5 (samples/simm-valuation-demo): (a)
+                 bench_partial_merkle's tear-off (8 Fix commands revealed
+                 of a DummyContract issue) verified 2,000 times on the
+                 host, proofs/s; (b) a validating Notary, Dealer A, Dealer
+                 B and an Oracle holding a RateOracle over MockNetwork:
+                 64 portfolios of 100 trades (tests/test_simm.py's
+                 generator, seeds 0-63), each created by a transaction
+                 both dealers sign, valued by 64 SimmValuationFlows
+                 started at once, on the card (TorchVerifier("cuda")) and
+                 on the host (CpuVerifier); every valuation must equal
+                 initial_margin and be > 0, the card's outcomes,
+                 commits and vaults equal the host's, every batch at or
+                 above the crossover take the card; one pair whose margin
+                 runs diverge must reach no ledger; (c) 64 swaps of
+                 tests/test_irs_network.py's terms issued, then one fix
+                 against the wrong oracle (refused), then fixed through
+                 the oracle's tear-off signature (IrsFixFlow) and settled
+                 (IrsSettleFlow), one network run a stage, card and host:
+                 every fixing carries the oracle's signature, every
+                 settlement pays the test's formula, the notary commits
+                 128 inputs, card equal to host. Valuations, fixings and
+                 settlements a second and each flow's start-to-result
+                 time.
+ 25. multisig -- BASELINE config 4 (3-of-3 CompositeKey fan-out): (a)
+                 bench_multisig's 64 distinct transactions (every eighth
+                 with two signatures) tiled to 2,048 and to 10,000, one
+                 TorchVerifier("cuda").verify_batch each and the
+                 composite walk: 1,792 and 8,750 fulfilled, the mask
+                 equal to the oracle's lane for lane and the walk to
+                 CpuVerifier's; sigs/s and tx/s, medians of 3, card and
+                 host. (b) 1,000 Cash moves of states owned by the board's
+                 3-of-3 key notarised in one burst at a validating
+                 notary, every eighth signed by two members: 875 commits
+                 and 125 NotarySignaturesMissing on the card and the
+                 host, outcomes and commits equal; notarisations/s and
+                 each flow's start-to-result time.
+ 26. the verify kernel's registers, static SASS counts, resident blocks
      per SM and waves at N_MAIN, and the SHA-256 kernels' SASS counts (no
      byte loads in sha256_many's block loop) and occupancy at the wave;
-     the kernels line, then the device line (last).
+     the kernels line (launches: the main path's and the card paths of
+     phases 24 and 25), then the device line (last).
 
 Everything is made from fixed seeds; the oracle (crypto/ref_ed25519.py)
 decides every expected answer.
@@ -3227,6 +3264,25 @@ def raft_ladder_session(nl, driver_mod, side, device_min, card):
             check(all(x is not None for x in warm["latency_s"]),
                   "raft ladder: the warm-up flows did not finish")
             dbs = {m.name: m.base_dir / "node.db" for m in members}
+            # Every member applies the warm-up's moves before the first
+            # rung's commit logs are read: a follower a heartbeat behind
+            # would count them in that rung.
+            warm_ids = {r for r in warm["results"] if isinstance(r, str)
+                        and len(r) == 64}
+            deadline = time.monotonic() + 30
+            while True:
+                logs = {k: {v.hex() for v in
+                            nl.committed_inputs_at(p).values()}
+                        for k, p in dbs.items()}
+                if len(warm_ids) == LADDER_WARM and all(
+                        warm_ids <= ids for ids in logs.values()):
+                    break
+                check(time.monotonic() < deadline,
+                      f"raft ladder {side}: the warm-up's {len(warm_ids)} "
+                      "returned ids did not all reach every member's commit "
+                      "log: " + ", ".join(f"{k} {len(warm_ids & v)}"
+                                          for k, v in logs.items()))
+                time.sleep(0.05)
             magic = 1
             for rate in LADDER_RATES:
                 before = {k: (tier_counts(o.call("node_metrics")),
@@ -3790,6 +3846,334 @@ def phase_trades(provider, kernels, card):
     return out
 
 
+# --- BASELINE config 5: the rate oracle, the portfolio agreement, the IRS --
+
+# samples/simm-valuation-demo (BASELINE.json configs[4]): bench_partial_merkle's
+# tear-off verified TEAR_OFF_PROOFS times (bench.py:525-554); SIMM_N
+# portfolios of SIMM_TRADES trades agreed in one burst; IRS_N swaps issued,
+# fixed through the oracle and settled in step.
+TEAR_OFF_PROOFS = 2_000
+SIMM_N = 64
+SIMM_TRADES = 100
+IRS_N = 64
+SIDES = ("card", "host")
+
+
+def side_verifier(provider, side):
+    return (provider.TorchVerifier(device="cuda") if side == "card"
+            else provider.CpuVerifier())
+
+
+def shared_tiers(res, verifier, kernels) -> dict:
+    """A MockNetwork run's launches since the last reset and its shared
+    verifier's device and host batches, added to ``res``."""
+    torch.cuda.synchronize()
+    res["launches"] = dict(kernels.LAUNCHES)
+    res["device_batches"] = getattr(verifier, "device_batches", 0) or 0
+    res["host_batches"] = getattr(verifier, "host_batches", 0) or 0
+    return res
+
+
+def check_no_degrade(label, res) -> None:
+    for name, m in res["nodes"].items():
+        check(m["verify_device_degraded"] == 0,
+              f"{label}: {name} degraded its device tier")
+
+
+def simm_run(sl, api, provider, kernels, side) -> dict:
+    """Phase 24 (b), one side: SIMM_N portfolios valued in one burst."""
+    verifier = side_verifier(provider, side)
+    net, *nodes = sl.make_simm_network(api, verifier)
+    try:
+        creations = sl.build_portfolios(api, *nodes, SIMM_N, SIMM_TRADES)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = sl.run_valuations(api, net, nodes, creations)
+        return shared_tiers(res, verifier, kernels)
+    finally:
+        net.stop_nodes()
+
+
+def swap_run(sl, api, provider, kernels, side) -> dict:
+    """Phase 24 (c), one side: IRS_N swaps issued, fixed and settled."""
+    verifier = side_verifier(provider, side)
+    net, *nodes = sl.make_irs_network(api, verifier, IRS_N)
+    try:
+        issues = sl.build_swaps(api, *nodes, IRS_N)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = sl.run_swaps(api, net, nodes, issues)
+        return shared_tiers(res, verifier, kernels)
+    finally:
+        net.stop_nodes()
+
+
+def node_batches(res) -> str:
+    return "; ".join(f"{k} {v['verify_batches']} batches of "
+                     f"{v['verify_sigs']} sigs (largest {v['largest_batch']})"
+                     for k, v in res["nodes"].items())
+
+
+def flow_line(label, n, wall_s, flow_s) -> str:
+    lat = percentiles_ms(flow_s)
+    return (f"{label} {n / wall_s:.1f}/s over {wall_s * 1e3:.1f} ms, p50 "
+            f"{ms_or_na(lat['p50_ms'])} p99 {ms_or_na(lat['p99_ms'])} max "
+            f"{ms_or_na(lat['max_ms'])} ms over {lat['n']}")
+
+
+def phase_simm(provider, kernels, card) -> dict:
+    """Phase 24: BASELINE config 5 (samples/simm-valuation-demo). (a) The
+    oracle's tear-off proof on the host. (b) SIMM_N portfolio agreements
+    over MockNetwork (validating Notary, Dealer A, Dealer B, an Oracle),
+    card then host: each valuation must equal initial_margin and be > 0,
+    the card's run equal the host's; a diverging pair must reach no
+    ledger. (c) IRS_N swaps issued, fixed through the oracle's tear-off
+    signature and settled, card then host."""
+    from corda_tpu_torch.testing import simm_load as sl
+
+    device_min = provider.DEVICE_MIN_SIGS_DEFAULT
+    api = sl.port_api()
+    out = {}
+    t0 = time.perf_counter()
+
+    wtx, ftx = sl.tear_off(api)
+    check(ftx.verify(wtx.id)
+          and not ftx.verify(api.SecureHash.sha256(b"another tx")),
+          "simm tear-off: the proof does not verify against its own id only")
+    t = time.perf_counter()
+    for _ in range(TEAR_OFF_PROOFS):
+        ftx.verify(wtx.id)
+    proof_s = time.perf_counter() - t
+    out["tear_off"] = {"proofs": TEAR_OFF_PROOFS, "seconds": proof_s,
+                       "proofs_s": TEAR_OFF_PROOFS / proof_s,
+                       "revealed_commands": len(ftx.filtered_leaves
+                                                .commands)}
+    log(f"{card} | simm tear-off: {TEAR_OFF_PROOFS} partial Merkle proofs "
+        f"of {out['tear_off']['revealed_commands']} Fix commands in "
+        f"{proof_s * 1e3:.1f} ms = {out['tear_off']['proofs_s']:.0f} "
+        "proofs/s (host)")
+
+    t1 = time.perf_counter()
+    runs = {side: simm_run(sl, api, provider, kernels, side)
+            for side in SIDES}
+    for side, res in runs.items():
+        label = f"simm portfolios {side}"
+        bad = [o for o in res["outcomes"] if o[0] != "ok"]
+        check(not bad and len(res["outcomes"]) == SIMM_N,
+              f"{label}: {len(bad)} agreements failed: {bad[:2]}")
+        check([o[1][1] for o in res["outcomes"]] == res["expected"]
+              and all(v > 0 for v in res["expected"]),
+              f"{label}: valuations differ from initial_margin")
+        check(len(res["committed"]) == SIMM_N,
+              f"{label}: {len(res['committed'])} committed, not {SIMM_N}")
+        check(sl.portfolio_record(res) == sl.portfolio_record(runs["host"]),
+              f"{label}: the run differs from the host's")
+        check_no_degrade(label, res)
+    check_shared_batches("simm portfolios card", runs["card"], device_min)
+    diverging = sl.run_diverging_valuation(
+        api, provider.TorchVerifier(device="cuda"), SIMM_TRADES)
+    check(diverging["outcome"][0] == "FlowException"
+          and "diverge" in diverging["outcome"][1]
+          and diverging["committed"] == 0
+          and diverging["valuations"] == {"Dealer A": [None],
+                                          "Dealer B": [None]},
+          f"simm diverging: {diverging}")
+    out["portfolios"] = {side: {
+        "valuations_s": SIMM_N / r["wall_s"], "wall_ms": r["wall_s"] * 1e3,
+        "latency": percentiles_ms(r["flow_s"]), "launches": r["launches"],
+        "device_batches": r["device_batches"],
+        "host_batches": r["host_batches"],
+        "nodes": {k: {f: v[f] for f in ("verify_batches", "verify_sigs",
+                                        "largest_batch", "verify_s")}
+                  for k, v in r["nodes"].items()}}
+        for side, r in runs.items()}
+    out["diverging"] = diverging["outcome"]
+    for side, r in runs.items():
+        log(f"{card} | simm portfolios {side}: " + flow_line(
+            f"{SIMM_N} agreements of {SIMM_TRADES} trades,", SIMM_N,
+            r["wall_s"], r["flow_s"]) + f"; {node_batches(r)}; device "
+            f"batches {r['device_batches']} host {r['host_batches']}; "
+            f"launches verify {r['launches']['ed25519_verify']} challenge "
+            f"{r['launches']['sha512_challenge']} sha256_many "
+            f"{r['launches']['sha256_many']}")
+    log(f"{card} | simm diverging: refused ({diverging['outcome'][1]}), "
+        "nothing committed")
+    out["portfolios_s"] = time.perf_counter() - t1
+
+    t2 = time.perf_counter()
+    swaps = {side: swap_run(sl, api, provider, kernels, side)
+             for side in SIDES}
+    for side, res in swaps.items():
+        label = f"simm swaps {side}"
+        bad = sl.check_swaps(api, res, IRS_N)
+        check(not bad, f"{label}: {bad}")
+        check(sl.swap_record(res) == sl.swap_record(swaps["host"]),
+              f"{label}: the run differs from the host's")
+        check_no_degrade(label, res)
+    check_shared_batches("simm swaps card", swaps["card"], device_min)
+    out["swaps"] = {side: {
+        **{stage: {"per_s": IRS_N / r[stage]["wall_s"],
+                   "wall_ms": r[stage]["wall_s"] * 1e3,
+                   "latency": percentiles_ms(r[stage]["flow_s"])}
+           for stage in ("issue", "fix", "settle")},
+        "committed": len(r["committed"]), "launches": r["launches"],
+        "device_batches": r["device_batches"],
+        "host_batches": r["host_batches"],
+        "nodes": {k: {f: v[f] for f in ("verify_batches", "verify_sigs",
+                                        "largest_batch", "verify_s")}
+                  for k, v in r["nodes"].items()}}
+        for side, r in swaps.items()}
+    for side, r in swaps.items():
+        log(f"{card} | simm swaps {side}: " + "; ".join(
+            flow_line(stage, IRS_N, r[stage]["wall_s"], r[stage]["flow_s"])
+            for stage in ("issue", "fix", "settle"))
+            + f"; committed {len(r['committed'])}; {node_batches(r)}; device "
+            f"batches {r['device_batches']} host {r['host_batches']}; "
+            f"launches verify {r['launches']['ed25519_verify']} challenge "
+            f"{r['launches']['sha512_challenge']} sha256_many "
+            f"{r['launches']['sha256_many']}")
+    out["swaps_s"] = time.perf_counter() - t2
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{card} | phase 24 seconds: portfolios {out['portfolios_s']:.1f}, "
+        f"swaps {out['swaps_s']:.1f}; total {out['seconds']:.1f}")
+    return out
+
+
+# --- BASELINE config 4: 3-of-3 CompositeKey fan-out ------------------------
+
+# finance/ Cash with 3-of-3 CompositeKey multi-sig (BASELINE.json
+# configs[3]): bench_multisig's batch (bench.py:478-522) at its own 2,048
+# transactions and at the baseline's 10,000, and MOVES_N board moves
+# notarised in one burst (cut from the baseline's 10,000 transactions to
+# the 1,000 flows of configs 1 and 2, for the run's time limit).
+MULTISIG_TILES = {2_048: 1_792, 10_000: 8_750}  # transactions: fulfilled
+MOVES_N = 1_000
+MOVES_SEED = SEED + 25
+
+
+def multisig_batch_run(ml, api, ref, provider, kernels, tile) -> dict:
+    """Phase 25 (a) at one tiling: one card verify_batch plus the
+    composite walk (launches counted from 0), held to the oracle lane for
+    lane and to CpuVerifier transaction for transaction; then each
+    verifier's verify + walk timed, medians of 3 on the host clock."""
+    composite, txs, jobs, spans = ml.multisig_batch(api, tile)
+    one = spans[ml.N_DISTINCT - 1][1]
+    tile_mask = [ref.verify(j.pubkey, j.message, j.sig) for j in jobs[:one]]
+    oracle = [tile_mask[k % one] for k in range(len(jobs))]
+    verifiers = {side: side_verifier(provider, side) for side in SIDES}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    card_ok = verifiers["card"].verify_batch(jobs)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    masks = {"card": card_ok, "host": verifiers["host"].verify_batch(jobs)}
+    walks = {}
+    for side, mask in masks.items():
+        check(np.asarray(mask, bool).tolist() == oracle,
+              f"multisig {tile} {side}: the mask differs from the oracle's")
+        walks[side] = ml.fulfilled(composite, txs, spans, mask)
+        check(sum(walks[side]) == MULTISIG_TILES[tile],
+              f"multisig {tile} {side}: {sum(walks[side])} fulfilled, not "
+              f"{MULTISIG_TILES[tile]}")
+    check(walks["card"] == walks["host"],
+          f"multisig {tile}: the card's fulfilments differ from the host's")
+    check(launches["ed25519_verify"] > 0 and launches["sha512_challenge"] > 0,
+          f"multisig {tile}: the card verify launched {launches}")
+    times = {}
+    for side, v in verifiers.items():
+        def run(v=v):
+            ml.fulfilled(composite, txs, spans, v.verify_batch(jobs))
+        times[side] = host_ms(run, reps=3) / 1e3
+    return {"transactions": tile, "signatures": len(jobs),
+            "fulfilled": sum(walks["card"]), "launches": launches,
+            **{side: {"seconds": t, "sigs_s": len(jobs) / t,
+                      "tx_s": tile / t} for side, t in times.items()}}
+
+
+def moves_run(ml, api, provider, kernels, side) -> dict:
+    """Phase 25 (b), one side: MOVES_N board moves in one burst."""
+    verifier = side_verifier(provider, side)
+    net, notary, treasury = ml.make_move_network(api, verifier)
+    try:
+        issues, moves = ml.build_moves(api, notary, treasury, MOVES_N,
+                                       MOVES_SEED)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = ml.run_moves(api, net, notary, treasury, issues, moves)
+        return shared_tiers(res, verifier, kernels)
+    finally:
+        net.stop_nodes()
+
+
+def phase_multisig(ref, provider, kernels, card) -> dict:
+    """Phase 25: BASELINE config 4. (a) bench_multisig's batch at 2,048
+    and 10,000 transactions through one TorchVerifier("cuda").verify_batch
+    and the composite walk, against CpuVerifier and the oracle. (b)
+    MOVES_N Cash moves of board-owned states to a validating notary, every
+    eighth signed by two members: the same 875 commits and 125 refusals on
+    the card and the host."""
+    from corda_tpu_torch.testing import multisig_load as ml
+
+    device_min = provider.DEVICE_MIN_SIGS_DEFAULT
+    api = ml.port_api()
+    out = {"batch": {}}
+    t0 = time.perf_counter()
+    for tile in MULTISIG_TILES:
+        r = multisig_batch_run(ml, api, ref, provider, kernels, tile)
+        out["batch"][tile] = r
+        log(f"{card} | multisig batch {tile}: {r['signatures']} signatures, "
+            f"{r['fulfilled']} of {tile} fulfilled = CpuVerifier = the "
+            f"oracle; card {r['card']['sigs_s']:.0f} sigs/s "
+            f"{r['card']['tx_s']:.0f} tx/s ({r['card']['seconds'] * 1e3:.1f}"
+            f" ms), host {r['host']['sigs_s']:.0f} sigs/s "
+            f"{r['host']['tx_s']:.0f} tx/s ({r['host']['seconds'] * 1e3:.1f} "
+            f"ms), medians of 3; launches verify "
+            f"{r['launches']['ed25519_verify']} challenge "
+            f"{r['launches']['sha512_challenge']}")
+    out["batch_s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    runs = {side: moves_run(ml, api, provider, kernels, side)
+            for side in SIDES}
+    want = [("NotaryException", "NotarySignaturesMissing") if ml.is_short(i)
+            else ("ok",) for i in range(MOVES_N)]
+    for side, res in runs.items():
+        label = f"multisig moves {side}"
+        kinds = [o[:1] if o[0] == "ok" else o for o in res["outcomes"]]
+        check(kinds == want, f"{label}: {sum(k == ('ok',) for k in kinds)} "
+              f"committed of {MOVES_N}, e.g. {kinds[:8]}")
+        check(res["outcomes"] == runs["host"]["outcomes"]
+              and res["committed"] == runs["host"]["committed"],
+              f"{label}: outcomes or commits differ from the host's")
+        check_no_degrade(label, res)
+    check_shared_batches("multisig moves card", runs["card"], device_min)
+    commits = sum(o[0] == "ok" for o in runs["card"]["outcomes"])
+    out["moves"] = {side: {
+        "commits": commits, "refused": MOVES_N - commits,
+        "notarisations_s": commits / r["wall_s"],
+        "wall_ms": r["wall_s"] * 1e3, "latency": percentiles_ms(r["flow_s"]),
+        "launches": r["launches"], "device_batches": r["device_batches"],
+        "host_batches": r["host_batches"],
+        "nodes": {k: {f: v[f] for f in ("verify_batches", "verify_sigs",
+                                        "largest_batch", "verify_s")}
+                  for k, v in r["nodes"].items()}}
+        for side, r in runs.items()}
+    for side, r in runs.items():
+        log(f"{card} | multisig moves {side}: {commits} committed, "
+            f"{MOVES_N - commits} refused; " + flow_line(
+                "notarisations", commits, r["wall_s"], r["flow_s"])
+            + f"; {node_batches(r)}; device batches {r['device_batches']} "
+            f"host {r['host_batches']}; launches verify "
+            f"{r['launches']['ed25519_verify']} challenge "
+            f"{r['launches']['sha512_challenge']} sha256_many "
+            f"{r['launches']['sha256_many']}")
+    out["moves_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{card} | phase 25 seconds: batch {out['batch_s']:.1f}, moves "
+        f"{out['moves_s']:.1f}; total {out['seconds']:.1f}")
+    return out
+
+
 # --- parent against change: the SHA-256 kernels of two trees in turns ------
 
 
@@ -4053,6 +4437,28 @@ def main() -> int:
     # change, the wire network map and the web API
     trade_res = phase_trades(provider, kernels, card)
 
+    # 24. BASELINE config 5: the oracle's tear-off, the SIMM portfolio
+    # agreement and the IRS fixing and settlement
+    simm_res = phase_simm(provider, kernels, card)
+
+    # 25. BASELINE config 4: the 3-of-3 CompositeKey fan-out
+    multisig_res = phase_multisig(ref, provider, kernels, card)
+
+    # The kernels line's launches: the main path's and each path of phases
+    # 24 and 25 on the card, each counted from 0 just before it.
+    paths = {"main": main_res["launches"],
+             "simm portfolios": simm_res["portfolios"]["card"]["launches"],
+             "simm swaps": simm_res["swaps"]["card"]["launches"],
+             **{f"multisig batch {t}": r["launches"]
+                for t, r in multisig_res["batch"].items()},
+             "multisig moves": multisig_res["moves"]["card"]["launches"]}
+    launches = {k: sum(p.get(k, 0) for p in paths.values())
+                for k in kernels.LAUNCHES}
+    log("kernel launches by path: " + "; ".join(
+        f"{name} " + " / ".join(str(p.get(k, 0)) for k in kernels.LAUNCHES)
+        for name, p in paths.items())
+        + f" ({' / '.join(kernels.LAUNCHES)})")
+
     # kernels line
     bound1, by1 = bound_ms(N_MAIN * VERIFY_BYTES,
                            main_res["verify_least_int_ops"])
@@ -4091,27 +4497,29 @@ def main() -> int:
         {"name": "ed25519_verify", "route": "cuda",
          "source": "corda_tpu_torch/ops/csrc/ed25519_verify.cu",
          "replaces": "corda_tpu/ops/ed25519_pallas.py:50",
-         "launches": main_res["launches"]["ed25519_verify"],
+         "launches": launches["ed25519_verify"],
          "max_abs_err": max_err["ed25519_verify"],
          "ms": main_res["k1_ms"], "plain_ms": main_res["p1_ms"],
          "bound_ms": bound1, "bound_by": by1, "library_ms": None},
         {"name": "sha512_challenge", "route": "cuda",
          "source": "corda_tpu_torch/ops/csrc/sha512_challenge.cu",
          "replaces": "corda_tpu/ops/sha512_jax.py:355",
-         "launches": main_res["launches"]["sha512_challenge"],
+         "launches": launches["sha512_challenge"],
          "max_abs_err": max_err["sha512_challenge"],
          "ms": main_res["k2_ms"], "plain_ms": main_res["p2_ms"],
          "bound_ms": bound2, "bound_by": by2, "library_ms": None},
         {"name": "sha256_many", "route": "cuda",
          "source": "corda_tpu_torch/ops/csrc/sha256.cu",
          "replaces": "corda_tpu/ops/sha256_jax.py:66",
-         "launches": many["launches"], "max_abs_err": max_err["sha256_many"],
+         "launches": many["launches"] + launches["sha256_many"],
+         "max_abs_err": max_err["sha256_many"],
          "ms": many["ms"], "plain_ms": many["plain_ms"],
          "bound_ms": bound3, "bound_by": by3, "library_ms": None},
         {"name": "sha256_pair", "route": "cuda",
          "source": "corda_tpu_torch/ops/csrc/sha256.cu",
          "replaces": "corda_tpu/ops/sha256_jax.py:170",
-         "launches": pair["launches"], "max_abs_err": max_err["sha256_pair"],
+         "launches": pair["launches"] + launches["sha256_pair"],
+         "max_abs_err": max_err["sha256_pair"],
          "ms": pair["ms"], "plain_ms": pair["plain_ms"],
          "bound_ms": bound4, "bound_by": by4, "library_ms": None},
     ]}
@@ -4125,7 +4533,8 @@ def main() -> int:
               "batch_sign": sign_res, "resolve": resolve_res,
               "hash_crossover": hash_cross, "sha256_oversize": oversize_res,
               "notary": notary_res, "node": node_res, "raft": raft_res,
-              "trades": trade_res,
+              "trades": trade_res, "simm": simm_res, "multisig": multisig_res,
+              "launches_by_path": paths,
               "ptxas": {s: ptxas_summary(_build, s) for s in _build.SOURCES},
               "sass_sha512_challenge": sass2,
               "challenge_least_int_ops": CHALLENGE_INT_OPS,

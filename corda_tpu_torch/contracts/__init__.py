@@ -1,8 +1,9 @@
 """L1 ledger data model: states, contracts, commands, transactions-for-contract.
 
 The port's copies of ``corda_tpu/contracts/structures.py``,
-``verification.py`` and ``dsl.py``; the JAX package's sandbox, clause and
-universal-contract modules are not ported yet (ROADMAP.md).
+``verification.py``, ``dsl.py`` and ``universal.py`` (not exported here,
+as in the JAX package); the JAX package's sandbox and clause modules are
+not ported yet (ROADMAP.md).
 """
 
 from .structures import (  # noqa: F401

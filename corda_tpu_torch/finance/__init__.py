@@ -2,9 +2,10 @@
 
 The port's own copies of ``corda_tpu/finance``'s Amount arithmetic, the
 on-ledger asset base, the Cash, CommercialPaper and Commodity contracts
-and the two-party delivery-versus-payment trade flows. Obligation, the
-deal and rate types, fixable deals and IRS are not ported yet
-(ROADMAP.md).
+and the two-party delivery-versus-payment trade flows; the rate types
+(``types``), fixable deals (``fixable_deal``) and the interest-rate swap
+(``irs``) are modules of their own, not exported here, as in the JAX
+package. Obligation is not ported yet (ROADMAP.md).
 """
 
 from .amount import Amount

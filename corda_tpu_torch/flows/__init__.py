@@ -1,9 +1,9 @@
 """L2/L3 flow framework: the programming model and the library flows.
 
 The port's own copies of ``corda_tpu/flows``: the flow API, the notary
-client and services, fetch, resolve, finality, data vending and the
-notary change (``state_replacement``). ``deal`` and ``oracle`` are not
-ported yet (ROADMAP.md).
+client and services, fetch, resolve, finality, data vending, the
+two-party deal, the rate oracle and the notary change
+(``state_replacement``).
 """
 
 from .api import (  # noqa: F401
@@ -33,6 +33,14 @@ from .fetch import FetchAttachmentsFlow, FetchTransactionsFlow  # noqa: F401
 from .resolve import ResolveTransactionsFlow  # noqa: F401
 from .finality import BroadcastTransactionFlow, FinalityFlow  # noqa: F401
 from .data_vending import install_data_vending  # noqa: F401
+from .deal import DealAcceptorFlow, DealInstigatorFlow  # noqa: F401
+from .oracle import (  # noqa: F401
+    Fix,
+    FixOf,
+    RateOracle,
+    RatesFixQueryFlow,
+    RatesFixSignFlow,
+)
 from .state_replacement import (  # noqa: F401
     NotaryChangeAcceptor,
     NotaryChangeFlow,

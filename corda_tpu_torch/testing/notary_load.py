@@ -217,9 +217,11 @@ def outcome_of(handle) -> tuple:
     return ("ok", bytes(sig.bytes), bytes(sig.by.encoded))
 
 
-def _start(api, node, stx, starts: list, ends: list, k: int):
+def start_timed(node, flow, starts: list, ends: list, k: int):
+    """Start ``flow`` on ``node``, stamping ``starts[k]`` now and
+    ``ends[k]`` when its result is set (a done-callback)."""
     starts[k] = time.perf_counter()
-    handle = node.start_flow(api.NotaryClientFlow(stx))
+    handle = node.start_flow(flow)
 
     def _done(_future, k=k):
         ends[k] = time.perf_counter()
@@ -278,7 +280,8 @@ def run_workload(api, net, notary, alice, bob, workload: Workload,
     t0 = time.perf_counter()
     for r in rounds:
         for k in r:
-            handles[k] = _start(api, alice, stxs[k], starts, ends, k)
+            handles[k] = start_timed(alice, api.NotaryClientFlow(stxs[k]),
+                                     starts, ends, k)
         if settle is None:
             net.run_network()
         else:
@@ -468,7 +471,8 @@ def run_tcp_workload(api, notary, alice, bob, workload: Workload,
     for r in (range(len(workload.moves)),
               range(len(workload.moves), len(stxs))):
         for k in r:
-            handles[k] = _start(api, alice, stxs[k], starts, ends, k)
+            handles[k] = start_timed(alice, api.NotaryClientFlow(stxs[k]),
+                                     starts, ends, k)
         pump_nodes(nodes, lambda r=r: all(handles[k].result.done for k in r),
                    timeout_s)
     wall_s = time.perf_counter() - t0

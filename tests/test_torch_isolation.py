@@ -10,7 +10,9 @@ plain version, notarises through the port's MockNetwork with both notary
 kinds, through three port ``Node``s over localhost TCP and sqlite, and
 through a raft-simple cluster of three port ``Node``s, trades papers for
 cash over the MockNetwork and over three port ``Node``s on the indexed
-vault, changes two states' notary, and must end with neither jax nor
+vault, changes two states' notary, agrees a SIMM portfolio valuation
+through the rate oracle, issues, fixes and settles an interest-rate swap,
+notarises 3-of-3 board moves, and must end with neither jax nor
 corda_tpu loaded.
 """
 
@@ -88,6 +90,13 @@ NOTARY_PATH_MODULES = [
     "node/webserver.py", "finance/commercial_paper.py", "finance/trade.py",
     "finance/commodity.py", "flows/state_replacement.py",
     "testing/identities.py", "testing/ledger_dsl.py",
+    # BASELINE configs 5 and 4: the rate types, the oracle, deals, the
+    # universal contract, fixable deals, the IRS, the SIMM model and the
+    # portfolio agreement, and the workloads the chip phases run.
+    "finance/types.py", "flows/oracle.py", "flows/deal.py",
+    "contracts/universal.py", "finance/fixable_deal.py", "finance/irs.py",
+    "tools/simm.py", "tools/portfolio.py", "testing/simm_load.py",
+    "testing/multisig_load.py",
 ]
 
 
@@ -196,6 +205,26 @@ with tempfile.TemporaryDirectory() as tmp:
             node.stop()
 res = nl.run_notary_change(api, provider.CpuVerifier(), 2, 3)
 assert [o[0] for o in res["outcomes"]] == ["ok", "ok"], res["outcomes"]
+# BASELINE config 5: a tear-off proof, a portfolio agreed through the
+# oracle, a swap issued, fixed and settled; config 4: board moves.
+from corda_tpu_torch.testing import multisig_load as ml, simm_load as sl
+sapi = sl.port_api()
+wtx, ftx = sl.tear_off(sapi)
+assert ftx.verify(wtx.id)
+net, *snodes = sl.make_simm_network(sapi, provider.CpuVerifier())
+res = sl.run_valuations(sapi, net, snodes,
+                        sl.build_portfolios(sapi, *snodes, 1, 10))
+assert [o[1][1] for o in res["outcomes"]] == res["expected"], res
+net.stop_nodes()
+net, *snodes = sl.make_irs_network(sapi, provider.CpuVerifier(), 1)
+res = sl.run_swaps(sapi, net, snodes, sl.build_swaps(sapi, *snodes, 1))
+assert sl.check_swaps(sapi, res, 1) == [], res
+net.stop_nodes()
+mapi = ml.port_api()
+net, mn, mt = ml.make_move_network(mapi, provider.CpuVerifier())
+res = ml.run_moves(mapi, net, mn, mt, *ml.build_moves(mapi, mn, mt, 8, 3))
+assert [o[0] for o in res["outcomes"]] == ["ok"] * 7 + ["NotaryException"]
+net.stop_nodes()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu"))
 assert not bad, bad
