@@ -105,8 +105,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                  MockNetwork to a simple and to a validating notary, every
                  micro-batch of the verify pump through
                  TorchVerifier("cuda") and, in turns, CpuVerifier (card,
-                 host, host, card); one burst, and validating waves of 16
-                 and 128 flows. Outcomes and notary signature bytes on the
+                 host); one burst, and validating waves of 16 and 128
+                 flows. Outcomes and notary signature bytes on the
                  card must equal the host's, committed inputs the
                  notarised count; every batch of a card run must take the
                  card (no host batch, device batches = the nodes' verify
@@ -236,11 +236,48 @@ Phases, in order; any failure exits non-zero and prints no result:
                  and 125 NotarySignaturesMissing on the card and the
                  host, outcomes and commits equal; notarisations/s and
                  each flow's start-to-result time.
- 26. the verify kernel's registers, static SASS counts, resident blocks
+ 26. tls      -- (a) phase 21 (a)'s workload through three port Nodes in
+                 this process with tls = true, every node on "torch": the
+                 dev CA beside the netmap file signs the notary's and
+                 Bob's certificates, a CertificateSigningServer issues
+                 Alice's over HTTP (CertificateSigner) before her node
+                 boots; a simple and a validating burst, each with the
+                 outcomes, notary signatures and commits of phase 21
+                 (a)'s card run, every batch at or above the crossover on
+                 the card, and a plaintext client's frame refused;
+                 notarisations/s and p50 / p99 / max beside phase 21
+                 (a)'s plaintext numbers. (b) those 1,000 moves'
+                 signatures in one card verify_batch = the oracle; a
+                 contract of two clauses (AllComposition), shipped as an
+                 attachment zip with a helper module, loaded through
+                 AttachmentsModuleLoader and run over every move under
+                 DeterministicSandbox.run and directly: equal verdicts,
+                 both tx/s; hostile attachments (open, eval, an import
+                 escape) refused at load, a looping contract killed.
+ 27. mesh     -- (a) TorchMeshVerifier over every card on the 65,536
+                 signatures = TorchVerifier's mask = the oracle's, one
+                 launch of each kernel a card, timed in turns beside
+                 TorchVerifier and phase 5, the device window of the
+                 per-device launches; a mesh one card wider than the host
+                 raises, and a sidecar asked for it exits non-zero before
+                 its banner. (b) phase 8's three clients through a
+                 sidecar owning every card (device_lanes, pad_lanes). (c)
+                 bench_multihost_scaling: 1, 2 and 4 sidecar processes as
+                 simulated hosts through Driver.start_federation, 16
+                 signatures a request, two feeders a host, a 120 ms
+                 coalesce window, 3 s a width, on card sidecars and on
+                 host sidecars; every verdict exact, no batch on the
+                 local host tier; (d) the kill leg: two card hosts, host 0
+                 SIGKILLed at 40%, every batch answered once and exactly;
+                 (e) phase 21 (a)'s validating burst with the notary's
+                 [batch] federation_hosts naming two card sidecars:
+                 outcomes = phase 21 (a)'s, every batch through a sidecar.
+ 28. the verify kernel's registers, static SASS counts, resident blocks
      per SM and waves at N_MAIN, and the SHA-256 kernels' SASS counts (no
      byte loads in sha256_many's block loop) and occupancy at the wave;
+     the sharded verify's device window against the two kernels' bounds;
      the kernels line (launches: the main path's and the card paths of
-     phases 24 and 25), then the device line (last).
+     phases 24-27), then the device line (last).
 
 Everything is made from fixed seeds; the oracle (crypto/ref_ed25519.py)
 decides every expected answer.
@@ -936,14 +973,15 @@ def request_tier(sidecar, address, jobs, req_id):
     return tier, np.frombuffer(body, np.uint8).astype(bool)
 
 
-def phase_sidecar(provider, sidecar, kernels, jobs, want):
+def phase_sidecar(provider, sidecar, kernels, jobs, want, devices=None):
     """Phase 8: three clients through one SidecarServer on the card, then
-    (e) one small request alone, which the host tier answers."""
+    (e) one small request alone, which the host tier answers. Phase 27 (b)
+    runs it again with the server owning ``devices`` cards."""
     n_small = provider.DEVICE_MIN_SIGS_DEFAULT - 1
     check(n_small >= 1, "DEVICE_MIN_SIGS_DEFAULT routes no batch to the host")
     address, tmp = sidecar_address()
     server = sidecar.SidecarServer(address, device="cuda", coalesce_us=20000,
-                                   max_sigs=4096)
+                                   max_sigs=4096, devices=devices)
     server.start()
     kernels.reset_launches()
     errors: list[str] = []
@@ -1013,10 +1051,11 @@ def phase_sidecar(provider, sidecar, kernels, jobs, want):
     check(stats["kernel_backend"] == "cuda", f"stats: {stats}")
     check(launches["ed25519_verify"] > 0 and launches["sha512_challenge"] > 0,
           f"sidecar did not launch both kernels: {launches}")
-    log(f"sidecar: {3 * reqs_per_client} requests from 3 clients match the "
-        f"oracle; batches {stats['batches']} (merged "
+    log(f"sidecar (devices {devices}): {3 * reqs_per_client} requests from "
+        f"3 clients match the oracle; batches {stats['batches']} (merged "
         f"{stats['cross_request_batches']}), hist {stats['batch_sigs_hist']}, "
-        f"pad_lanes {stats['pad_lanes']}, launches {launches}; one "
+        f"device_lanes {stats['device_lanes']} pad_lanes "
+        f"{stats['pad_lanes']}, launches {launches}; one "
         f"{n_small}-signature request answered by the host tier (tier "
         f"{small_tier}, host_batches {stats['host_batches']}, "
         f"device_min_sigs {stats['device_min_sigs']})")
@@ -1074,7 +1113,9 @@ QOS_CLOSED_S = 2.0
 # Each open-loop mode of the mix runs long enough for a few hundred
 # interactive requests (about 8 a second at 0.5 R); a p99 is reported only
 # over P99_MIN_N requests or more, since under that it is the maximum.
-QOS_MIX_S = 45.0
+# 30 s a mode (45 before phases 26-27 were added) keeps that above
+# P99_MIN_N and the whole run inside its time limit.
+QOS_MIX_S = 30.0
 P99_MIN_N = 100
 QOS_ADAPT_S = 3.0       # the adaptive phase prints a trajectory, no tail
 QOS_WORKERS = 32        # the open-loop generator's connections
@@ -2442,7 +2483,9 @@ def phase_notary(provider, kernels, async_verify, faults, card):
     NotaryClientFlow from Alice on a MockNetwork to a simple and to a
     validating notary, every micro-batch of the state machines' verify
     pump through TorchVerifier("cuda") and, in turns, CpuVerifier (card,
-    host, host, card); the burst and, validating, waves of 16 and 128.
+    host, as phases 21 (a) and 22 (a): one run a side keeps the whole run
+    inside its time limit); the burst and, validating, waves of 16 and
+    128.
     Card outcomes and notary signatures must equal the host run's, the
     committed inputs must equal the notarised count, the card runs must
     take device batches through both verify kernels, and no node may
@@ -2467,7 +2510,7 @@ def phase_notary(provider, kernels, async_verify, faults, card):
         key = f"{'validating' if validating else 'simple'}-" + (
             "burst" if wave is None else f"waves{wave}")
         runs = {"card": [], "host": []}
-        for side in ("card", "host", "host", "card"):
+        for side in NODE_TURNS:
             verifier = (provider.TorchVerifier(device="cuda")
                         if side == "card" else provider.CpuVerifier())
             res, works[validating] = notary_run(
@@ -2597,15 +2640,22 @@ def crossover_split(sizes, device_min: int) -> tuple[int, int]:
     return above, len(sizes) - above
 
 
-def tcp_run(nl, api, kernels, side, validating, work, profile=False):
+def tcp_run(nl, api, kernels, side, validating, work, profile=False,
+            tls=False, notary_batch=None, before=None, after=None):
     """One burst of the workload through three port Nodes over localhost
     TCP and sqlite (fresh stores, seeded identities), every node's
     verifier NODE_KINDS[side]; the card's launches counted from 0 after
-    the nodes' warm-up."""
+    the nodes' warm-up. ``tls`` and ``notary_batch`` go to
+    make_tcp_nodes; ``before(base)`` runs before the nodes boot (phase 26
+    puts a doorman-issued certificate in place) and ``after(nodes, res)``
+    once the burst is done, while the nodes still run."""
     base = tempfile.mkdtemp(prefix="cts_node")
     nodes = ()
     try:
-        nodes = nl.make_tcp_nodes(api, base, NODE_KINDS[side], validating)
+        if before is not None:
+            before(base)
+        nodes = nl.make_tcp_nodes(api, base, NODE_KINDS[side], validating,
+                                  tls=tls, notary_batch=notary_batch)
         if work is None:
             work = nl.build_workload(api, *nodes, NOTARY_N, NOTARY_BAD,
                                      NOTARY_DOUBLE, NOTARY_SEED)
@@ -2618,11 +2668,22 @@ def tcp_run(nl, api, kernels, side, validating, work, profile=False):
         if prof is not None:
             res["device_busy_ms"], res["traced_verify_launches"] = \
                 device_busy_ms(prof)
+        if after is not None:
+            after(nodes, res)
         return res, work
     finally:
         for node in nodes:
             node.stop()
         shutil.rmtree(base, ignore_errors=True)
+
+
+def run_fingerprint(res) -> str:
+    """A digest of a TCP run's outcomes (notary signature bytes included)
+    and its notary's committed inputs: two runs of the same seeded
+    workload are equal iff their fingerprints are."""
+    h = hashlib.sha256(repr(res["outcomes"]).encode())
+    h.update(repr(sorted(res["committed"].items())).encode())
+    return h.hexdigest()
 
 
 def tcp_summary(res) -> dict:
@@ -2707,6 +2768,7 @@ def phase_node_tcp(nl, api, kernels, device_min, mock_res, card) -> dict:
         check_tcp_runs(nl, key, runs, works[validating], device_min)
         out[key] = {side: [tcp_summary(r) for r in rs]
                     for side, rs in runs.items()}
+        out[key]["card_fingerprint"] = run_fingerprint(runs["card"][0])
         out[key]["under_crossover_host_batches"] = [
             sum(crossover_split(m["batch_sizes"], device_min)[1]
                 for m in r["nodes"].values()) for r in runs["card"]]
@@ -4174,6 +4236,507 @@ def phase_multisig(ref, provider, kernels, card) -> dict:
     return out
 
 
+# --- mutual TLS with the doorman; contracts from attachments ---------------
+
+SANDBOX_LOOP_JUMPS = 100_000  # the looping contract's jump budget
+
+
+def tls_side_checks(label, res, fingerprint, device_min) -> None:
+    """Phase 26 (a)'s checks on one TLS burst: the same outcomes, notary
+    signatures and commits as phase 21 (a)'s plaintext card run, every
+    batch at or above the crossover on the card, nothing degraded, and
+    the plaintext client refused."""
+    check(run_fingerprint(res) == fingerprint,
+          f"{label}: outcomes, notary signatures or commits differ from "
+          "phase 21 (a)'s card run")
+    check_node_batches(label, res, device_min)
+    for name, m in res["nodes"].items():
+        check(m["verify_device_degraded"] == 0,
+              f"{label}: {name} degraded its device tier")
+    check(res["plaintext_started"] == 0,
+          f"{label}: a plaintext client's frame started a flow on the "
+          "TLS notary")
+
+
+def sandbox_views_run(cl, DeterministicSandbox, contract, views) -> dict:
+    """The clause contract over every view, directly then sandboxed; each
+    pass timed."""
+    t0 = time.perf_counter()
+    direct = cl.verdicts(contract, views)
+    t1 = time.perf_counter()
+    boxed = cl.verdicts(contract, views, DeterministicSandbox())
+    t2 = time.perf_counter()
+    return {"direct": direct, "sandboxed": boxed,
+            "direct_tx_s": len(views) / (t1 - t0),
+            "sandboxed_tx_s": len(views) / (t2 - t1)}
+
+
+def phase_tls_contracts(ref, provider, kernels, node_res, card) -> dict:
+    """Phase 26. (a) Phase 21 (a)'s workload through three port Nodes in
+    this process with tls = true, every node on "torch": the dev CA
+    beside the netmap file signs the notary's and Bob's certificates, and
+    a CertificateSigningServer issues Alice's over HTTP through
+    CertificateSigner before her node boots; a simple and a validating
+    burst, each equal to phase 21 (a)'s card run, and a plaintext client's
+    frame refused. (b) The 1,000 moves' signatures through one card
+    verify_batch, held to the oracle; then contract_load's clause contract,
+    shipped as an attachment zip with a helper module, loaded through
+    AttachmentsModuleLoader and run over every move under
+    DeterministicSandbox.run and directly: equal verdicts. Hostile
+    attachments are refused at load and a looping contract is killed."""
+    from pathlib import Path
+
+    from corda_tpu_torch.contracts.sandbox import (CostBudget,
+                                                   DeterministicSandbox,
+                                                   SandboxCostExceeded,
+                                                   SandboxViolation)
+    from corda_tpu_torch.crypto import certsigning, x509
+    from corda_tpu_torch.node.messaging.api import TopicSession
+    from corda_tpu_torch.node.messaging.tcp import TcpMessaging
+    from corda_tpu_torch.testing import contract_load as cl
+    from corda_tpu_torch.testing import notary_load as nl
+
+    device_min = provider.DEVICE_MIN_SIGS_DEFAULT
+    api = nl.port_api()
+    out: dict = {"tls": {}}
+    issued: dict = {}
+    t0 = time.perf_counter()
+
+    def doorman(base):
+        ca_cert, ca_key = x509.ensure_dev_ca(base)
+        server = certsigning.CertificateSigningServer(ca_cert, ca_key,
+                                                      auto_approve=True)
+        try:
+            service = certsigning.HttpCertificateSigningService(server.url)
+            paths = certsigning.CertificateSigner(
+                Path(base) / "Alice" / "certificates", "Alice", service,
+                poll_interval=0.01).build_key_store(timeout=60)
+        finally:
+            server.stop()
+        issued["pem"] = paths["cert"].read_bytes()
+
+    def plaintext_probe(nodes, res):
+        notary, alice = nodes[0], nodes[1]
+        check(all(n.messaging._tls_server_ctx is not None for n in nodes),
+              "a TLS node listens in plaintext")
+        check((alice.config.base_dir / "certificates" / "tls-cert.pem")
+              .read_bytes() == issued["pem"],
+              "Alice's node did not keep the doorman's certificate")
+        plain = TcpMessaging("127.0.0.1", 0).start()
+        try:
+            before = notary.smm.metrics["started"]
+            plain.send(TopicSession("platform.session", 0), b"junk",
+                       notary.messaging.my_address)
+            deadline = time.monotonic() + 1.5
+            while time.monotonic() < deadline:
+                for n in nodes:
+                    n.run_once(timeout=0.01)
+            res["plaintext_started"] = notary.smm.metrics["started"] - before
+        finally:
+            plain.stop()
+
+    work = None
+    for validating in (False, True):
+        key = f"{'validating' if validating else 'simple'}-burst"
+        res, work = tcp_run(nl, api, kernels, "card", validating, None,
+                            tls=True, before=doorman, after=plaintext_probe)
+        plain = node_res["in_process"][key]
+        tls_side_checks(f"tls {key}", res, plain["card_fingerprint"],
+                        device_min)
+        out["tls"][key] = summary = tcp_summary(res)
+        lat, plat = summary["latency"], plain["card"][0]["latency"]
+        log(f"{card} | tls {key} card: {summary['notarisations_s']:.1f} "
+            f"notarisations/s; flow p50 {ms_or_na(lat['p50_ms'])} p99 "
+            f"{ms_or_na(lat['p99_ms'])} max {ms_or_na(lat['max_ms'])} ms | "
+            f"plaintext (phase 21 (a), same call) "
+            f"{plain['card'][0]['notarisations_s']:.1f}/s p50 "
+            f"{ms_or_na(plat['p50_ms'])} p99 {ms_or_na(plat['p99_ms'])} max "
+            f"{ms_or_na(plat['max_ms'])} ms; outcomes and commits = phase 21"
+            " (a)'s; plaintext frame refused; launches verify "
+            f"{res['launches']['ed25519_verify']} challenge "
+            f"{res['launches']['sha512_challenge']}")
+    out["tls_s"] = time.perf_counter() - t0
+
+    # (b) the moves' signatures on the card, then the attachment contract.
+    t1 = time.perf_counter()
+    jobs, _spans = wave_jobs(provider, work.moves)
+    want = np.array([ref.verify(j.pubkey, j.message, j.sig) for j in jobs])
+    bad = set(work.bad)
+    check(want.tolist() == [i not in bad for i in range(len(jobs))],
+          "the oracle disagrees with the workload's tampered positions")
+    verifier = provider.TorchVerifier(device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = verifier.verify_batch(jobs)
+    torch.cuda.synchronize()
+    out["batch_launches"] = dict(kernels.LAUNCHES)
+    check(np.array_equal(got, want),
+          f"sandbox phase batch != oracle on {int((got != want).sum())} lanes")
+    check(verifier.device_batches == 1 and out["batch_launches"][
+        "ed25519_verify"] == 1, f"the batch did not take the card once: "
+          f"{out['batch_launches']}")
+    contract = cl.load_clause_contract()
+    views = cl.contract_views(work)
+    r = sandbox_views_run(cl, DeterministicSandbox, contract, views)
+    check(r["sandboxed"] == r["direct"],
+          "the sandboxed verdicts differ from the direct run's")
+    check(any(r["direct"]) and not all(r["direct"]),
+          "the clause contract accepted or refused every move")
+    for name, (files, reason) in cl.HOSTILE.items():
+        try:
+            cl.loader_for(files).load_module("evil")
+        except SandboxViolation as exc:
+            check(reason in str(exc), f"hostile {name}: {exc}")
+        else:
+            fail(f"the hostile attachment ({name}) loaded")
+    looping = cl.loader_for({"looping.py": cl.LOOPING_CONTRACT}) \
+        .load_contract("looping.LoopingContract")
+    try:
+        DeterministicSandbox(budget=CostBudget(
+            jumps=SANDBOX_LOOP_JUMPS)).run(type(looping).verify, looping,
+                                           views[0])
+    except SandboxCostExceeded as exc:
+        check(exc.kind == "jump", f"looping contract: {exc}")
+    else:
+        fail("the looping contract was not killed")
+    out["sandbox"] = {
+        "transactions": len(views), "accepted": sum(r["direct"]),
+        "direct_tx_s": r["direct_tx_s"],
+        "sandboxed_tx_s": r["sandboxed_tx_s"],
+        "hostile_refused": sorted(cl.HOSTILE)}
+    log(f"{card} | sandbox: {len(jobs)} signatures in one card verify_batch"
+        f" = the oracle ({len(bad)} tampered); the attachment's clause "
+        f"contract accepts {sum(r['direct'])} of {len(views)} moves, "
+        f"sandboxed = direct; sandboxed {r['sandboxed_tx_s']:.0f} tx/s, "
+        f"direct {r['direct_tx_s']:.0f} tx/s (host Python); hostile "
+        f"attachments refused at load ({', '.join(sorted(cl.HOSTILE))}); "
+        f"the looping contract killed at {SANDBOX_LOOP_JUMPS} jumps")
+    out["sandbox_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{card} | phase 26 seconds: tls {out['tls_s']:.1f}, sandbox "
+        f"{out['sandbox_s']:.1f}")
+    return out
+
+
+# --- the multi-device verify plane: mesh, mesh sidecar, federation ---------
+
+# bench_multihost_scaling's shape (bench.py:1638-1830): requests of 16
+# signatures, two feeder threads a simulated host, the sidecars' coalesce
+# window 120 ms, 3 s a width, host 0 killed at 40% of the kill leg.
+FED_SIGS = 16
+FED_WIDTHS = (1, 2, 4)
+FED_SECONDS = 3.0
+FED_COALESCE_US = 120_000
+FED_KILL_AT = 0.4
+
+
+def fed_corpus(jobs, want):
+    """FED_SIGS of the main path's jobs, one of them tampered."""
+    idx = sorted([*np.flatnonzero(want)[:FED_SIGS - 1],
+                  int(np.flatnonzero(~want)[0])])
+    return [jobs[i] for i in idx], want[idx]
+
+
+def sidecar_launches(sidecar, handles) -> dict:
+    """Kernel launches so far, summed over sidecar processes."""
+    total = {k: 0 for k in VERIFY_KERNELS}
+    for h in handles:
+        got = sidecar.fetch_stats(h.address).get("kernel_launches") or {}
+        for k in total:
+            total[k] += got.get(k, 0)
+    return total
+
+
+def federation_round(federation, handles, corpus, expected,
+                     kill_after_s=None) -> dict:
+    """One width of bench.py's _federation_round over already-running
+    sidecar processes ``handles``: two feeder threads a host, staggered,
+    FED_SECONDS; every verdict held to the corpus truth; with
+    ``kill_after_s``, handles[0] is SIGKILLed then."""
+    hosts = len(handles)
+    workers = 2 * hosts
+    fed = federation.FederatedVerifier([h.address for h in handles],
+                                       device_min_sigs=0)
+    fed.warm()
+    lock = threading.Lock()
+    agg = {"batches": 0, "sigs": 0, "parity_ok": True}
+    times: list[float] = []
+    stop = threading.Event()
+
+    def feeder(offset_s):
+        if stop.wait(offset_s):
+            return
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            ok = fed.verify_batch(corpus)
+            dt = time.perf_counter() - t0
+            good = bool(np.array_equal(np.asarray(ok, bool), expected))
+            with lock:
+                agg["batches"] += 1
+                agg["sigs"] += len(corpus)
+                agg["parity_ok"] = agg["parity_ok"] and good
+                times.append(dt)
+
+    window = FED_COALESCE_US / 1e6
+    threads = [threading.Thread(
+        target=feeder, args=((i % hosts) * window / hosts
+                             + (i // hosts) * window,), daemon=True)
+        for i in range(workers)]
+    t_all = time.perf_counter()
+    for t in threads:
+        t.start()
+    at_kill = None
+    if kill_after_s is not None:
+        time.sleep(kill_after_s)
+        at_kill = [c.dispatches for c in fed.channels]
+        handles[0].kill()
+    time.sleep(max(0.0, FED_SECONDS - (kill_after_s or 0.0)))
+    stop.set()
+    for t in threads:
+        t.join(timeout=60.0)
+    wall = time.perf_counter() - t_all
+    check(not any(t.is_alive() for t in threads), "a federation feeder hung")
+    fs = fed.federation_stats()
+    out = {"hosts": hosts, "workers": workers, "batches": agg["batches"],
+           "sigs_s": agg["sigs"] / wall, "parity_ok": agg["parity_ok"],
+           "local_host_tier_answers": fed.fallbacks, "hedges": fed.hedges,
+           "host_degraded": fed.host_degraded,
+           "routing_share": list(fs["routing_share_by_host"].values()),
+           "latency": percentiles_ms(times)}
+    if at_kill is not None:
+        post = [c.dispatches - k for c, k in zip(fed.channels, at_kill)]
+        out["post_kill_dispatches"] = post
+        out["survivor_share_post_kill"] = (sum(post[1:]) / sum(post)
+                                           if sum(post) else None)
+    return out
+
+
+def log_round(card, label, r) -> None:
+    lat = r["latency"]
+    log(f"{card} | federation {label} {r['hosts']} host(s): "
+        f"{r['sigs_s']:.1f} sigs/s over {r['batches']} batches, p50 "
+        f"{ms_or_na(lat['p50_ms'])} p99 {ms_or_na(lat['p99_ms'])} ms; "
+        f"routing shares {[round(x, 4) for x in r['routing_share']]}, "
+        f"hedges {r['hedges']}, local host tier answers "
+        f"{r['local_host_tier_answers']}"
+        + (f"; host 0 killed: survivors' share "
+           f"{r['survivor_share_post_kill']}, post-kill dispatches "
+           f"{r['post_kill_dispatches']}" if "post_kill_dispatches" in r
+           else ""))
+
+
+def federation_side(federation, sidecar, driver_mod, side, corpus, expected,
+                    card) -> dict:
+    """The widths 1, 2, 4 over one set of four sidecar processes (card:
+    verifier "torch" on the card; host: "cpu"), then, on the card, the
+    kill leg over the other two."""
+    device = "accelerator" if side == "card" else "cpu"
+    out = {"widths": {}}
+    base = tempfile.mkdtemp(prefix="cts_fed")
+    try:
+        with driver_mod.driver(base) as d:
+            t0 = time.perf_counter()
+            handles = d.start_federation(
+                max(FED_WIDTHS), verifier=NODE_KINDS[side], device=device,
+                coalesce_us=FED_COALESCE_US,
+                max_sigs=max(FED_SIGS * 2 * max(FED_WIDTHS), 4096))
+            out["boot_s"] = time.perf_counter() - t0
+            before = sidecar_launches(sidecar, handles)
+            for width in FED_WIDTHS:
+                r = federation_round(federation, handles[:width], corpus,
+                                     expected)
+                check(r["parity_ok"], f"federation {side} {width}: a "
+                      "verdict differs from the corpus truth")
+                check(r["local_host_tier_answers"] == 0,
+                      f"federation {side} {width}: "
+                      f"{r['local_host_tier_answers']} batches took the "
+                      "local host tier")
+                out["widths"][width] = r
+                log_round(card, side, r)
+            out["launches"] = {k: v - before[k] for k, v in
+                               sidecar_launches(sidecar, handles).items()}
+            stats = [sidecar.fetch_stats(h.address) for h in handles]
+            out["sidecar_batches"] = {
+                "device": sum(s["device_batches"] or 0 for s in stats),
+                "host": sum(s["host_batches"] or 0 for s in stats)}
+            lo, hi = min(FED_WIDTHS), max(FED_WIDTHS)
+            out["scaling_1_to_max"] = (out["widths"][hi]["sigs_s"]
+                                       / out["widths"][lo]["sigs_s"])
+            if side == "card":
+                check(out["launches"]["ed25519_verify"] > 0
+                      and out["sidecar_batches"]["host"] == 0,
+                      f"the card federation's sidecars: {out}")
+                kill = federation_round(federation, handles[-2:], corpus,
+                                        expected,
+                                        kill_after_s=FED_SECONDS
+                                        * FED_KILL_AT)
+                check(kill["parity_ok"], "federation kill leg: a verdict "
+                      "differs from the corpus truth")
+                out["kill"] = kill
+                log_round(card, "card kill leg", kill)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"{card} | federation {side}: sigs/s by hosts " + ", ".join(
+        f"{w}: {r['sigs_s']:.1f}" for w, r in out["widths"].items())
+        + f"; scaling_1_to_max {out['scaling_1_to_max']:.2f}; boot "
+        f"{out['boot_s']:.1f} s"
+        + (f"; sidecar launches {out['launches']}, batches "
+           f"{out['sidecar_batches']}" if side == "card" else ""))
+    return out
+
+
+def phase_mesh_federation(provider, sidecar, kernels, jobs, want, main_res,
+                          node_res, card) -> dict:
+    """Phase 27. (a) TorchMeshVerifier over every card on the main path's
+    65,536 signatures: = TorchVerifier's mask = the oracle's, timed in
+    turns with TorchVerifier beside phase 5's time, launches counted; a
+    mesh one card wider than the host raises, in the verifier and as a
+    sidecar's --devices. (b) A card sidecar owning every card serves phase
+    8's three clients. (c) bench_multihost_scaling's federation: 1, 2, 4
+    sidecar processes (card, then host), every verdict exact; (d) its
+    kill leg on the card; (e) phase 21 (a)'s validating burst with the
+    notary's [batch] federation_hosts naming two card sidecars: outcomes
+    equal phase 21 (a)'s, every batch answered by a sidecar."""
+    from corda_tpu_torch.crypto import federation
+    from corda_tpu_torch.node.config import BatchConfig
+    from corda_tpu_torch.ops import sharded
+    from corda_tpu_torch.testing import driver as driver_mod
+    from corda_tpu_torch.testing import notary_load as nl
+
+    count = torch.cuda.device_count()
+    out: dict = {"devices": count}
+    t0 = time.perf_counter()
+    mesh = provider.TorchMeshVerifier(device_min_sigs=0)
+    single = provider.TorchVerifier(device="cuda", device_min_sigs=0)
+    mesh.warm()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = mesh.verify_batch(jobs)
+    torch.cuda.synchronize()
+    out["launches"] = {k: kernels.LAUNCHES[k] for k in VERIFY_KERNELS}
+    check(np.array_equal(got, want),
+          f"mesh != oracle on {int((got != want).sum())} lanes")
+    check(np.array_equal(got, single.verify_batch(jobs)),
+          "the mesh's mask differs from TorchVerifier's")
+    check(out["launches"] == {k: count for k in VERIFY_KERNELS},
+          f"the mesh did not launch each kernel once a card: "
+          f"{out['launches']}")
+    turns = {"torch": [], "mesh": []}
+    for name in ("torch", "mesh", "mesh", "torch"):
+        v = single if name == "torch" else mesh
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v.verify_batch(jobs)
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t) * 1e3)
+    packed = sharded.pack_batch_sharded(
+        [j.pubkey for j in jobs], [j.message for j in jobs],
+        [j.sig for j in jobs], mesh.mesh)
+    check(packed.pad_lanes == (-len(jobs)) % count,
+          f"pad lanes {packed.pad_lanes} at {count} card(s)")
+    out["device_window_ms"] = kernel_ms(
+        lambda: sharded._launch(packed.fn, packed.arrays))
+    out["e2e_ms"] = {k: statistics.median(v) for k, v in turns.items()}
+    try:
+        provider.TorchMeshVerifier(n_devices=count + 1).mesh
+    except ValueError as exc:
+        out["wider_mesh_raises"] = str(exc)
+    else:
+        fail(f"a {count + 1}-card mesh built on a {count}-card host")
+    address, tmp = sidecar_address()
+    proc = subprocess.run(
+        [sys.executable, "-m", "corda_tpu_torch.crypto.sidecar", "--socket",
+         address, "--devices", str(count + 1)],
+        capture_output=True, text=True, timeout=300)
+    if tmp:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(proc.returncode != 0 and "sidecar up" not in proc.stdout,
+          f"a --devices {count + 1} sidecar started: rc {proc.returncode}")
+    log(f"{card} | mesh over {count} card(s): {N_MAIN} sigs = TorchVerifier"
+        f" = the oracle; launches {out['launches']}; end to end "
+        f"{out['e2e_ms']['mesh']:.1f} ms (TorchVerifier "
+        f"{out['e2e_ms']['torch']:.1f} ms in turns, phase 5 "
+        f"{main_res['e2e_ms']:.1f} ms); device window "
+        f"{out['device_window_ms']:.4f} ms, pad lanes {packed.pad_lanes}; "
+        f"a {count + 1}-card mesh raises ({out['wider_mesh_raises']}) and a "
+        f"--devices {count + 1} sidecar exits {proc.returncode} before its "
+        "banner")
+
+    # (b) the mesh-owning sidecar under phase 8's clients.
+    stats, side_launches = phase_sidecar(provider, sidecar, kernels, jobs,
+                                         want, devices=count)
+    out["sidecar"] = {k: stats[k] for k in (
+        "devices", "mesh_devices", "device_lanes", "pad_lanes",
+        "per_device_batch_sigs_hist", "device_batches", "host_batches")}
+    out["sidecar"]["launches"] = side_launches
+
+    # (c), (d) the federation, card then host.
+    corpus, expected = fed_corpus(jobs, want)
+    out["federation"] = {side: federation_side(
+        federation, sidecar, driver_mod, side, corpus, expected, card)
+        for side in ("card", "host")}
+
+    # (e) the TCP trio's validating burst, the notary on a federation.
+    base = tempfile.mkdtemp(prefix="cts_fednode")
+    try:
+        with driver_mod.driver(base) as d:
+            hosts = d.start_federation(2, verifier=NODE_KINDS["card"],
+                                       device="accelerator")
+            before = sidecar_launches(sidecar, hosts)
+            nodes = nl.make_tcp_nodes(
+                nl.port_api(), os.path.join(base, "nodes"),
+                NODE_KINDS["card"], True,
+                notary_batch=BatchConfig(federation_hosts=",".join(
+                    h.address for h in hosts)))
+            try:
+                fed = nodes[0].smm.verifier.inner
+                check(isinstance(fed, federation.FederatedVerifier),
+                      f"the notary's verifier is {type(fed).__name__}")
+                fed.device_min_sigs = 0  # every batch to a sidecar
+                api = nl.port_api()
+                work = nl.build_workload(api, *nodes, NOTARY_N, NOTARY_BAD,
+                                         NOTARY_DOUBLE, NOTARY_SEED)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                res = nl.run_tcp_workload(api, *nodes, work)
+                torch.cuda.synchronize()
+                # Alice's and Bob's own batches, in this process.
+                res["launches"] = dict(kernels.LAUNCHES)
+                fs = fed.federation_stats()
+                out["federated_node"] = {
+                    "summary": tcp_summary(res),
+                    "notary_batches": fed.device_batches,
+                    "local_host_tier": fed.host_batches,
+                    "fallbacks": fed.fallbacks,
+                    "routing_share": fs["routing_share_by_host"],
+                    "launches": {k: v - before[k] for k, v in
+                                 sidecar_launches(sidecar, hosts).items()}}
+            finally:
+                for node in nodes:
+                    node.stop()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    fn = out["federated_node"]
+    check(run_fingerprint(res) == node_res["in_process"]["validating-burst"][
+        "card_fingerprint"], "federated notary: outcomes, signatures or "
+          "commits differ from phase 21 (a)'s card run")
+    check(fn["fallbacks"] == 0 and fn["local_host_tier"] == 0
+          and fn["notary_batches"] > 0,
+          f"federated notary: batches not all answered by a sidecar: {fn}")
+    check(fn["launches"]["ed25519_verify"] > 0,
+          f"federated notary: the card sidecars launched nothing: {fn}")
+    s = fn["summary"]
+    log(f"{card} | federated notary validating-burst: "
+        f"{s['notarisations_s']:.1f} notarisations/s, p99 "
+        f"{ms_or_na(s['latency']['p99_ms'])} ms; outcomes = phase 21 (a)'s;"
+        f" {fn['notary_batches']} notary batches, all through the 2 card "
+        f"sidecars (shares {fn['routing_share']}), sidecar launches "
+        f"{fn['launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{card} | phase 27 seconds: {out['seconds']:.1f}")
+    return out
+
+
 # --- parent against change: the SHA-256 kernels of two trees in turns ------
 
 
@@ -4444,14 +5007,35 @@ def main() -> int:
     # 25. BASELINE config 4: the 3-of-3 CompositeKey fan-out
     multisig_res = phase_multisig(ref, provider, kernels, card)
 
+    # 26. mutual TLS with the doorman; contracts from attachments under the
+    # deterministic sandbox
+    tls_res = phase_tls_contracts(ref, provider, kernels, node_res, card)
+
+    # 27. the multi-device verify plane: the mesh verifier, the mesh
+    # sidecar, the federation of sidecar processes
+    mesh_res = phase_mesh_federation(provider, sidecar, kernels, jobs, want,
+                                     main_res, node_res, card)
+
     # The kernels line's launches: the main path's and each path of phases
-    # 24 and 25 on the card, each counted from 0 just before it.
+    # 24-27 on the card, each counted from 0 just before it (the sidecar
+    # processes' from their own counts, read over OP_STATS).
+    fed = mesh_res["federation"]["card"]
     paths = {"main": main_res["launches"],
              "simm portfolios": simm_res["portfolios"]["card"]["launches"],
              "simm swaps": simm_res["swaps"]["card"]["launches"],
              **{f"multisig batch {t}": r["launches"]
                 for t, r in multisig_res["batch"].items()},
-             "multisig moves": multisig_res["moves"]["card"]["launches"]}
+             "multisig moves": multisig_res["moves"]["card"]["launches"],
+             **{f"tls {k}": r["launches"]
+                for k, r in tls_res["tls"].items()},
+             "sandbox batch": tls_res["batch_launches"],
+             "mesh": mesh_res["launches"],
+             "mesh sidecar": mesh_res["sidecar"]["launches"],
+             "federation widths and kill leg": fed["launches"],
+             "federated notary (sidecars)":
+                 mesh_res["federated_node"]["launches"],
+             "federated trio (in process)":
+                 mesh_res["federated_node"]["summary"]["launches"]}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in kernels.LAUNCHES}
     log("kernel launches by path: " + "; ".join(
@@ -4485,6 +5069,12 @@ def main() -> int:
     bound3, by3 = bound_ms(many["bytes"], many["blocks"] * SHA256_BLOCK_INT_OPS)
     bound4, by4 = bound_ms(pair["bytes"], pair["nodes"] * (
         SHA256_BLOCK_INT_OPS + SHA256_PAD_BLOCK_INT_OPS))
+    shard_ms = mesh_res["device_window_ms"]
+    log(f"{card} | sharded verify (per-device launches, "
+        f"{mesh_res['devices']} card(s)) {shard_ms:.4f} ms = "
+        f"{(bound1 + bound2) / shard_ms:.1%} of the two kernels' bounds "
+        f"added, {bound1 + bound2:.4f} ms; launches per batch "
+        f"{mesh_res['launches']}; library: none")
     for name, k_ms, b_ms in (("verify", main_res["k1_ms"], bound1),
                              ("challenge", main_res["k2_ms"], bound2),
                              ("sha256_many", many["ms"], bound3),
@@ -4534,6 +5124,8 @@ def main() -> int:
               "hash_crossover": hash_cross, "sha256_oversize": oversize_res,
               "notary": notary_res, "node": node_res, "raft": raft_res,
               "trades": trade_res, "simm": simm_res, "multisig": multisig_res,
+              "tls_contracts": tls_res, "mesh_federation": mesh_res,
+              "sharded_bound_ms": bound1 + bound2,
               "launches_by_path": paths,
               "ptxas": {s: ptxas_summary(_build, s) for s in _build.SOURCES},
               "sass_sha512_challenge": sass2,

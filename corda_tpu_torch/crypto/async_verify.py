@@ -261,6 +261,18 @@ class AsyncVerifyService:
                  "sigs": len(handle.jobs)}
         _obs.record("queue_wait", now - wall - wait, now - wall, attrs=attrs)
         _obs.record("device_verify", now - wall, now, attrs=attrs)
+        route_s = getattr(self.verifier, "last_route_s", None)
+        if handle.tier == "device" and route_s is not None:
+            # Federation tier: decompose the device window into the
+            # routing decision and the winning host's round trip (which
+            # itself contains that host's sidecar_wait/sidecar_verify).
+            # Same newest-reply skew caveat as the sidecar spans below.
+            route_s = min(float(route_s), wall)
+            remote_s = min(float(getattr(self.verifier, "last_remote_s",
+                                         0.0) or 0.0), wall)
+            _obs.record("federation_route", now - wall,
+                        now - wall + route_s, attrs=attrs)
+            _obs.record("remote_verify", now - remote_s, now, attrs=attrs)
         sc_wait = getattr(self.verifier, "last_wait_s", None)
         if handle.tier == "device" and sc_wait is not None:
             # Sidecar tier: split the batch's device window into the

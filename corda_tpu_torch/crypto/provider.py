@@ -18,6 +18,9 @@ Providers:
                     with optional shadow sampling against the oracle. Small
                     batches, and every batch while the device gate is
                     closed, take the host tier (DeviceRoutedVerifier).
+  TorchMeshVerifier -- the same path over several devices: each batch
+                    split into equal slices, one launch of each kernel a
+                    device (ops/sharded.py).
 
 Mixed-scheme batches split by ``VerifyJob.scheme``: ed25519 jobs take the
 provider's batched path, ecdsa-p256 jobs verify on the host
@@ -316,6 +319,106 @@ class TorchVerifier(DeviceRoutedVerifier):
                 [VerifyJob(bytes(32), b"", bytes(64))])
 
 
+class TorchMeshVerifier(DeviceRoutedVerifier):
+    """The batched device verifier over several devices: each batch's lanes
+    split into equal slices, one per device, and each device runs one
+    launch of the challenge kernel and of the verify kernel on its slice
+    (ops/sharded.py). Counterpart of the JAX package's ``MeshVerifier``;
+    selectable as ``verifier = "torch-sharded"``.
+
+    The mesh spans every local card by default (``n_devices`` limits it;
+    ``devices`` names the devices outright, e.g. ``[torch.device("cpu")] *
+    8`` for the plain versions). It is built on first use, and asking for
+    more cards than the host has raises there: the port has no host-tier
+    fallback for a mesh that cannot be built. With one device the path is
+    TorchVerifier's."""
+
+    name = "torch-sharded"
+
+    def __init__(self, n_devices: int | None = None,
+                 shadow_rate: float = 0.0,
+                 rng: random.Random | None = None,
+                 device_min_sigs: int = DEVICE_MIN_SIGS_DEFAULT,
+                 devices=None):
+        super().__init__(shadow_rate=shadow_rate, rng=rng,
+                         device_min_sigs=device_min_sigs)
+        if devices is None:
+            from ..ops import require_cuda
+
+            require_cuda("cuda")
+        self.n_devices = n_devices
+        self._devices = devices
+        self._mesh = None
+
+    @property
+    def mesh(self):
+        """The devices, in slice order; built (and checked) on first use."""
+        if self._mesh is None:
+            from ..ops import sharded
+
+            self._mesh = sharded.make_mesh(self.n_devices, self._devices)
+        return self._mesh
+
+    @property
+    def device(self):
+        """The mesh's first device (its type is every device's)."""
+        return self.mesh[0]
+
+    @property
+    def kernel_backend(self) -> str:
+        """Read without building the mesh: a mesh of cards unless the
+        devices were named."""
+        if self._devices is None:
+            return "cuda"
+        import torch
+
+        cpu = torch.device(self._devices[0]).type == "cpu"
+        return "torch-cpu" if cpu else "cuda"
+
+    def _verify_ed25519_device(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
+        from ..ops import sharded
+
+        return sharded.verify_batch_sharded(
+            [j.pubkey for j in jobs], [j.message for j in jobs],
+            [j.sig for j in jobs], self.mesh)
+
+    def pack_device(self, jobs: Sequence[VerifyJob]):
+        """Host half of the mesh dispatch, routed exactly like
+        verify_batch: None for a batch that would not take the device (the
+        crossover or the gate says host, mixed schemes, nothing
+        well-formed); else a handle for :meth:`verify_packed` whose slices
+        are already on their devices."""
+        jobs = list(jobs)
+        if (not jobs or self._routes_to_host(len(jobs))
+                or any(j.scheme != "ed25519" for j in jobs)):
+            return None
+        from ..ops import sharded
+
+        return sharded.pack_batch_sharded(
+            [j.pubkey for j in jobs], [j.message for j in jobs],
+            [j.sig for j in jobs], self.mesh)
+
+    def verify_packed(self, packed) -> np.ndarray:
+        """Launch a handle from :meth:`pack_device` -> bool[packed.n];
+        counts as a device batch (routing was decided at pack time)."""
+        from ..ops import sharded
+
+        self.device_batches += 1
+        return sharded.dispatch_packed(packed)
+
+    def warm(self) -> None:
+        """Build the mesh (raising if the host cannot) and, on cards, the
+        kernels, running both paths once on every device, bypassing the
+        routing."""
+        if self.device.type != "cuda":
+            return
+        for n in WARM_SIZES:
+            self._verify_ed25519_device(
+                [VerifyJob(bytes(32), bytes(32), bytes(64))] * n)
+        self._verify_ed25519_device(
+            [VerifyJob(bytes(32), b"", bytes(64))] * len(self.mesh))
+
+
 def host_verify(jobs: Sequence[VerifyJob]) -> np.ndarray:
     """Verify a batch on the host tier regardless of any verifier's routing
     state -- the degrade path's re-verify (oracle-exact accept set, so a
@@ -391,15 +494,20 @@ def set_verifier(verifier: BatchVerifier | None) -> None:
 
 
 def make_verifier(kind: str, device: str = "cuda") -> BatchVerifier:
-    """Provider factory: torch | torch-shadow | cpu | oracle. Unknown names
-    raise: a typo must not silently swap the notary's verifier."""
+    """Provider factory: torch | torch-shadow | torch-sharded | cpu |
+    oracle. Unknown names raise: a typo must not silently swap the
+    notary's verifier. ``torch-sharded`` spans every card, or on
+    device="cpu" a mesh of the one CPU device."""
     if kind == "torch":
         return TorchVerifier(device=device)
     if kind == "torch-shadow":
         return TorchVerifier(device=device, shadow_rate=0.05)
+    if kind == "torch-sharded":
+        return (TorchMeshVerifier() if device == "cuda"
+                else TorchMeshVerifier(devices=[device]))
     if kind == "cpu":
         return CpuVerifier()
     if kind == "oracle":
         return OracleVerifier()
     raise ValueError(f"unknown verifier {kind!r}: expected torch | "
-                     "torch-shadow | cpu | oracle")
+                     "torch-shadow | torch-sharded | cpu | oracle")

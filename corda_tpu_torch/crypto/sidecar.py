@@ -41,6 +41,15 @@ host:port):
   OP_METRICS reply: u8(op) u32(req_id) u8(status)  prometheus text utf-8
   OP_PING    reply: u8(op) u32(req_id) u8(status)
 
+Device ownership: ``devices=N`` (``--devices N``) with N > 1 makes the
+server's verifier a ``TorchMeshVerifier`` over N local cards, so each
+coalesced batch is split into equal slices, one per card (ops/sharded.py);
+the stats attribute the lanes dispatched and the pad lanes (device_lanes,
+pad_lanes, per_device_batch_sigs_hist). The mesh is built in start(): a
+host with fewer cards than asked for raises there (the CLI exits non-zero
+before its banner), where the JAX package's server stays up on its host
+tier. ``devices`` 1 or unset keeps the single-card verifier.
+
 The sidecar holds no durable state; a client that gets an error or no
 answer verifies on its own host tier.
 """
@@ -53,6 +62,7 @@ import os
 import queue
 import socket
 import struct
+import sys
 import threading
 import time
 from collections import deque
@@ -61,7 +71,7 @@ from typing import Sequence
 import numpy as np
 
 from ..obs import telemetry as _tm
-from .provider import TorchVerifier, VerifyJob
+from .provider import TorchMeshVerifier, VerifyJob, make_verifier
 
 OP_VERIFY = 1
 OP_STATS = 2
@@ -102,6 +112,12 @@ def bucket_for(n: int) -> int:
         if n <= b:
             return b
     return BUCKETS[-1]
+
+
+def pad_to_devices(n: int, n_devices: int) -> int:
+    """Smallest multiple of n_devices >= max(n, n_devices) -- the arithmetic
+    of ops/sharded.py, here so that pad attribution needs no torch."""
+    return -(-max(n, 1) // max(n_devices, 1)) * max(n_devices, 1)
 
 
 # Adaptive coalesce_us: every ADAPT_WINDOW executed batches, shrink the
@@ -327,27 +343,34 @@ _STOP = object()
 
 
 class SidecarServer:
-    """The per-host verification server; it owns the card through its
-    verifier (default ``TorchVerifier(device)``). ``device_min_sigs``, when
-    given, is passed to the TorchVerifier the server builds (its size
-    crossover); a caller that brings its own verifier sets it there.
-    ``adaptive_coalesce`` retunes ``coalesce_us`` from the batch fill;
-    ``qos_guard_us`` is how long before the earliest interactive deadline
-    a coalescing batch flushes."""
+    """The per-host verification server; it owns the card (or cards)
+    through its verifier (default: ``verifier_kind`` "torch" on
+    ``device``, a ``TorchMeshVerifier`` over ``devices`` cards when
+    devices > 1). ``device_min_sigs``, when given, is set on the verifier
+    the server builds (its size crossover); a caller that brings its own
+    verifier sets it there. ``adaptive_coalesce`` retunes ``coalesce_us``
+    from the batch fill; ``qos_guard_us`` is how long before the earliest
+    interactive deadline a coalescing batch flushes."""
 
     def __init__(self, address: str, verifier=None, device: str = "cuda",
                  coalesce_us: int = 2000, max_sigs: int = 4096,
                  depth: int = 2, device_min_sigs: int | None = None,
                  adaptive_coalesce: bool = False,
-                 qos_guard_us: int = 2000):
+                 qos_guard_us: int = 2000, verifier_kind: str = "torch",
+                 devices: int | None = None):
         self.address = address
+        self.devices = int(devices or 0)
         if verifier is None:
-            kw = ({} if device_min_sigs is None
-                  else {"device_min_sigs": device_min_sigs})
-            verifier = TorchVerifier(device=device, **kw)
+            verifier = self._make_server_verifier(verifier_kind,
+                                                  self.devices, device)
+            if device_min_sigs is not None and hasattr(
+                    verifier, "device_min_sigs"):
+                verifier.device_min_sigs = device_min_sigs
         elif device_min_sigs is not None:
             raise ValueError("device_min_sigs applies to the verifier the "
                              "server builds: set it on the verifier passed in")
+        if not self.devices:
+            self.devices = int(getattr(verifier, "n_devices", None) or 0)
         self.verifier = verifier
         self.coalesce_us = int(coalesce_us)
         self.coalesce_us_initial = int(coalesce_us)
@@ -358,6 +381,9 @@ class SidecarServer:
         self._win_sigs = 0
         self.max_sigs = int(max_sigs)
         self.depth = int(depth)
+        # The proven mesh width: set in start() once the verifier's mesh is
+        # built (None for a single-device verifier).
+        self.mesh_devices: int | None = None
 
         self._pending: deque[_Pending] = deque()
         self._cv = threading.Condition()
@@ -378,6 +404,12 @@ class SidecarServer:
         self.pack_s_total = 0.0
         self.wait_s_total = 0.0
         self.verify_s_total = 0.0
+        # Lanes dispatched on the device tier, the pad lanes among them
+        # (the round-up to a multiple of the mesh width), and a histogram
+        # keyed by each device's lane share per dispatch.
+        self.device_lanes = 0
+        self.pad_lanes = 0
+        self.per_device_batch_sigs_hist: dict[int, int] = {}
         # QoS: flush this long before the earliest interactive deadline
         # (kept in ns), and count how the deadline scheduler behaved.
         self.qos_guard_ns = int(qos_guard_us) * 1000
@@ -385,11 +417,30 @@ class SidecarServer:
         self.qos_interactive_requests = 0
         self.qos_bulk_requests = 0
 
+    @staticmethod
+    def _make_server_verifier(kind: str, devices: int, device: str = "cuda"):
+        """devices > 1 makes a "torch*" kind a TorchMeshVerifier over
+        exactly that many cards (on device="cpu", that many copies of the
+        CPU device: the plain versions, slice by slice); devices <= 1
+        keeps the single-device verifier. Other kinds ignore devices --
+        there is no device tier to split."""
+        if devices > 1 and kind.startswith("torch"):
+            shadow = 0.05 if kind == "torch-shadow" else 0.0
+            if device == "cpu":
+                return TorchMeshVerifier(devices=["cpu"] * devices,
+                                         shadow_rate=shadow)
+            return TorchMeshVerifier(n_devices=devices, shadow_rate=shadow)
+        return make_verifier(kind, device=device)
+
     # -- lifecycle ----------------------------------------------------------
 
     def start(self, warm: bool = True) -> "SidecarServer":
-        """Listen, optionally warm the verifier (builds the kernels before
-        the first request is taken), and start the threads."""
+        """Build the verifier's mesh (raises when the host has fewer cards
+        than it asks for), optionally warm the verifier (builds the kernels
+        before the first request is taken), listen, and start the
+        threads."""
+        if isinstance(self.verifier, TorchMeshVerifier):
+            self.mesh_devices = len(self.verifier.mesh)
         if warm and hasattr(self.verifier, "warm"):
             self.verifier.warm()
         kind, addr = parse_address(self.address)
@@ -648,6 +699,23 @@ class SidecarServer:
                 if packed is not None:
                     self.packed_batches += 1
                     self.pack_s_total += pack_s
+                if tier == 1:
+                    # Pad attribution: a packed handle knows its dispatched
+                    # lanes and mesh width; an unpacked device batch is
+                    # reconstructed from the mesh width.
+                    if packed is not None:
+                        ndev = getattr(packed, "n_devices", 1)
+                        real = len(packed.good)
+                        lanes = getattr(packed, "bucket", real)
+                    else:
+                        ndev = self.mesh_devices or 1
+                        real = len(jobs)
+                        lanes = pad_to_devices(real, ndev)
+                    self.device_lanes += lanes
+                    self.pad_lanes += lanes - real
+                    share = lanes // ndev
+                    self.per_device_batch_sigs_hist[share] = (
+                        self.per_device_batch_sigs_hist.get(share, 0) + 1)
                 if self.adaptive_coalesce:
                     self._adapt_observe(len(batch), len(jobs))
             offset = 0
@@ -713,9 +781,19 @@ class SidecarServer:
 
     def stats(self) -> dict:
         v = self.verifier
+        kmod = sys.modules.get("corda_tpu_torch.ops.kernels")
+        dev_b = getattr(v, "device_batches", None)
+        host_b = getattr(v, "host_batches", None)
+        occupancy = None
+        if dev_b is not None and host_b is not None:
+            total = dev_b + host_b
+            occupancy = round(dev_b / total, 3) if total else 0.0
         with self._lock:
             hist = {str(k): self.batch_sigs_hist[k]
                     for k in sorted(self.batch_sigs_hist)}
+            per_dev_hist = {str(k): self.per_device_batch_sigs_hist[k]
+                            for k in sorted(self.per_device_batch_sigs_hist)}
+            lanes, pad = self.device_lanes, self.pad_lanes
             return {
                 "address": self.address,
                 "verifier": getattr(v, "name", None),
@@ -726,14 +804,28 @@ class SidecarServer:
                 "cross_request_batches": self.cross_request_batches,
                 "errors": self.errors,
                 "batch_sigs_hist": hist,
-                "device_batches": getattr(v, "device_batches", None),
-                "host_batches": getattr(v, "host_batches", None),
+                "device_batches": dev_b,
+                "host_batches": host_b,
                 "device_min_sigs": getattr(v, "device_min_sigs", None),
+                "device_occupancy": occupancy,
+                # This process's kernel launches (ops/kernels.py), read
+                # without importing the kernel module.
+                "kernel_launches": (dict(kmod.LAUNCHES) if kmod is not None
+                                    else None),
                 "packed_batches": self.packed_batches,
                 "pack_s_total": round(self.pack_s_total, 6),
-                # The port packs each batch to its exact size (the kernels
-                # take any N), so no lane is ever padding.
-                "pad_lanes": 0,
+                # Mesh ownership: the configured width, the proven one, and
+                # the lanes dispatched. The port packs each batch to its
+                # exact size (the kernels take any N), so pad lanes come
+                # only from the round-up to a multiple of the mesh width.
+                "devices": self.devices or None,
+                "mesh_devices": self.mesh_devices,
+                "device_lanes": lanes,
+                "pad_lanes": pad,
+                "pad_fraction": (round(pad / lanes, 4) if lanes else 0.0),
+                "per_device_occupancy": (
+                    round((lanes - pad) / lanes, 4) if lanes else 0.0),
+                "per_device_batch_sigs_hist": per_dev_hist,
                 "coalesce_us": self.coalesce_us,
                 "coalesce_us_initial": self.coalesce_us_initial,
                 "adaptive_coalesce": self.adaptive_coalesce,
@@ -757,6 +849,14 @@ def main(argv: Sequence[str] | None = None) -> int:
                         help="unix socket path or host:port to listen on")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu (plain PyTorch versions)")
+    parser.add_argument("--verifier", default="torch",
+                        help="server-side provider (torch | torch-shadow | "
+                             "torch-sharded | cpu | oracle)")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="split each batch across this many local "
+                             "cards (TorchMeshVerifier); 1 or unset keeps "
+                             "the single-card verifier; more than the "
+                             "host has exits non-zero")
     parser.add_argument("--coalesce-us", type=int, default=2000,
                         help="max time the oldest request waits for "
                              "cross-client company")
@@ -780,6 +880,7 @@ def main(argv: Sequence[str] | None = None) -> int:
                              "(OP_VERIFY_QOS clients)")
     args = parser.parse_args(argv)
     server = SidecarServer(args.socket, device=args.device,
+                           verifier_kind=args.verifier, devices=args.devices,
                            coalesce_us=args.coalesce_us,
                            max_sigs=args.max_sigs, depth=args.depth,
                            device_min_sigs=args.device_min_sigs,

@@ -258,7 +258,7 @@ def config_overlay_from_env(env=None) -> dict:
 
 # The verification providers a node can name: crypto.provider.make_verifier's
 # kinds. "torch" runs the CUDA kernels on the card (and raises without one).
-VERIFIER_KINDS = ("torch", "torch-shadow", "cpu", "oracle")
+VERIFIER_KINDS = ("torch", "torch-shadow", "torch-sharded", "cpu", "oracle")
 
 
 @dataclass(frozen=True)

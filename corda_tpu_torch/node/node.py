@@ -29,14 +29,17 @@ The port's own copy of ``corda_tpu/node/node.py``. What differs:
 * SIGTERM stops the node cleanly (exit 0), as Ctrl-C does.
 * stop() drains a raft member's apply executor (``quiesce_apply``) and
   ends its thread before the store closes.
-* Features whose modules wait for a later slice (mutual TLS, the verifier
-  federation, the sidecar's device stamp) raise ``NotImplementedError``
-  naming their ROADMAP.md item when configured, before the node opens its
-  store or its listener. Raft notaries (``raft-simple`` /
-  ``raft-validating``), the sharded notary (``[notary_shards]``), the
-  indexed vault (``[vault] indexed``), the wire network map
-  (``map_service`` / ``map_node``) and the web API (``web_port``) are the
-  reference's branches.
+* ``verifier = "torch-sharded"`` verifies each batch over every local
+  card (``crypto.provider.TorchMeshVerifier``); a mesh wider than the host's
+  cards raises at start, where the reference degrades to its host tier.
+* Every other branch is the reference's: mutual TLS (``tls``), the
+  verifier federation (``[batch] federation_hosts`` or
+  ``CORDA_TPU_FEDERATION``), the sidecar client and its device stamp
+  (``[batch] sidecar`` / ``sidecar_devices``), raft notaries
+  (``raft-simple`` / ``raft-validating``), the sharded notary
+  (``[notary_shards]``), the indexed vault (``[vault] indexed``), the
+  wire network map (``map_service`` / ``map_node``) and the web API
+  (``web_port``).
 """
 
 from __future__ import annotations
@@ -53,7 +56,6 @@ from ..obs import trace as _obs
 from ..qos import context as _qos
 from ..testing import faults as _faults
 from ..utils.clock import Clock
-from . import not_ported
 from .config import NetMapEntry, NodeConfig, netmap_load, netmap_register
 from .messaging.tcp import TcpMessaging
 from .services.api import (
@@ -92,34 +94,32 @@ def _make_verifier(kind: str):
 def _select_batch_verifier(config: NodeConfig):
     """Pick the node's verification provider from config + env.
 
-    Precedence: federation_hosts (or CORDA_TPU_FEDERATION), which raises
-    until the federation is ported, then a single sidecar address (or
-    CORDA_TPU_SIDECAR), then the local provider.
+    Precedence: federation_hosts (or CORDA_TPU_FEDERATION) -- the multi-
+    host router over per-host sidecars (crypto/federation.py) -- then a
+    single sidecar address (or CORDA_TPU_SIDECAR), then the local
+    provider. With neither knob set this returns exactly the local
+    provider.
     """
     federation = config.batch.federation_hosts or os.environ.get(
         "CORDA_TPU_FEDERATION", "")
     if federation:
-        raise not_ported("the verifier federation (federation_hosts, "
-                         "CORDA_TPU_FEDERATION)", "6")
+        from ..crypto.federation import FederatedVerifier
+
+        hosts = [h.strip() for h in federation.split(",") if h.strip()]
+        return FederatedVerifier(
+            hosts,
+            deadline_ms=config.batch.sidecar_deadline_ms,
+            devices=config.batch.sidecar_devices or None)
     sidecar_addr = config.batch.sidecar or os.environ.get(
         "CORDA_TPU_SIDECAR", "")
     if sidecar_addr:
-        if config.batch.sidecar_devices:
-            raise not_ported("the sidecar client's devices stamp "
-                             "([batch] sidecar_devices)", "6")
         from .verify_client import SidecarVerifier
 
         return SidecarVerifier(
             sidecar_addr,
-            deadline_ms=config.batch.sidecar_deadline_ms)
+            deadline_ms=config.batch.sidecar_deadline_ms,
+            devices=config.batch.sidecar_devices or None)
     return _make_verifier(config.verifier)
-
-
-def _refuse_unported(config: NodeConfig) -> None:
-    """Raise for the first configured feature whose module waits for a
-    later slice of the port, before anything is opened."""
-    if config.tls:
-        raise not_ported("mutual TLS (tls = true; crypto/x509.py)", "3")
 
 
 class Node:
@@ -127,7 +127,6 @@ class Node:
 
     def __init__(self, config: NodeConfig):
         self.config = config
-        _refuse_unported(config)
         # Verification provider, chosen before anything is opened (a
         # "torch" verifier raises here on a host without a card): a sidecar
         # address feeds the host's shared device-owning server
@@ -174,13 +173,25 @@ class Node:
             stored = self.db.get_setting("listen_port")
             if stored is not None:
                 port = int(stored)
+        tls_paths = None
+        if config.tls:
+            # Dev-mode TLS: certs chain to a shared dev CA living beside the
+            # network map file (configureWithDevSSLCertificate capability).
+            from ..crypto.x509 import generate_dev_tls_material
+
+            shared = (config.network_map.parent if config.network_map
+                      else config.base_dir)
+            tls_paths = generate_dev_tls_material(
+                config.base_dir, shared, config.name, config.host)
         try:
-            self.messaging = TcpMessaging(config.host, port, db=self.db)
+            self.messaging = TcpMessaging(config.host, port, db=self.db,
+                                          tls=tls_paths)
             self.messaging.start()
         except OSError:
             # Stored port taken (another process got it) — fall back to
             # ephemeral; netmap re-registration updates peers going forward.
-            self.messaging = TcpMessaging(config.host, 0, db=self.db)
+            self.messaging = TcpMessaging(config.host, 0, db=self.db,
+                                          tls=tls_paths)
             self.messaging.start()
         self.db.set_setting("listen_port", str(self.messaging.my_address.port))
 

@@ -58,19 +58,24 @@ class SidecarVerifier(DeviceRoutedVerifier):
     order and flush around them. A stale hint costs one early server
     flush, never correctness. ``reprobe_cooldown_s``: after a failed round
     trip, how long the degraded client waits between re-probes of the
-    sidecar (5 s, the JAX package's default)."""
+    sidecar (5 s, the JAX package's default). ``devices``: the mesh width
+    the configuration says the server owns ([batch] sidecar_devices),
+    stamped for attribution; the server's snapshot carries the proven
+    width."""
 
     name = "sidecar"
 
     def __init__(self, address: str, deadline_ms: float = 2000.0,
                  device_min_sigs: int = SIDECAR_MIN_SIGS_DEFAULT,
                  connect_timeout_s: float = 1.0,
-                 reprobe_cooldown_s: float = 5.0):
+                 reprobe_cooldown_s: float = 5.0,
+                 devices: int | None = None):
         super().__init__(device_min_sigs=device_min_sigs)
         self.address = address
         self.deadline_s = float(deadline_ms) / 1e3
         self.connect_timeout_s = connect_timeout_s
         self.reprobe_cooldown_s = reprobe_cooldown_s
+        self.devices = devices or None
         # Server-stats cache keyed by endpoint, so no sidecar's snapshot is
         # ever served as another's.
         self._server_snapshots: dict[str, tuple[float, dict | None]] = {}
@@ -233,6 +238,7 @@ class SidecarVerifier(DeviceRoutedVerifier):
             "degraded": self.degraded,
             "reprobes_ok": self.reprobes_ok,
             "reprobes_failed": self.reprobes_failed,
+            "devices": self.devices,
             "server": self._server_stats_maybe(),
         }
 

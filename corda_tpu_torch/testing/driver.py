@@ -22,9 +22,12 @@ one — "cpu" renders ``verifier = "cpu"`` and hides the card from the child
 "accelerator" renders ``verifier = "torch"`` and leaves the card visible.
 No JAX environment is set: a spawned node finds its kernels already built
 under ``build/corda_tpu_torch/`` (ops.BUILD_ROOT) or builds them at its
-warm-up. The sidecar and federation spawners wait for the slice that ports
-those services (ROADMAP.md queue 1 item 6). A
-node spawned over a base_dir whose log already holds a banner (a restart)
+warm-up. A sidecar (``start_sidecar``, and ``start_federation``'s simulated
+hosts) runs ``python -m corda_tpu_torch.crypto.sidecar`` with
+``--device cuda`` on an "accelerator" placement and ``--device cpu`` (the
+card hidden) otherwise; ``devices=N`` on a CPU placement splits batches
+over N copies of the CPU device (no virtual-device environment is needed).
+A node spawned over a base_dir whose log already holds a banner (a restart)
 waits for its own banner, not the previous process's.
 
 Usage:
@@ -235,6 +238,69 @@ class NodeProcess:
             self.process.wait(timeout=5)
 
 
+@dataclass
+class SidecarProcess:
+    """Handle on a spawned verification sidecar (crypto/sidecar.py) -- the
+    one device-owning verify server every node process on the host feeds.
+    Implements the Popen-subset methods stop_all uses, so it rides the
+    driver's node list for lifecycle."""
+
+    name: str
+    base_dir: Path
+    address: str  # unix socket path or host:port
+    process: object  # Host.spawn handle (Popen subset)
+    host: Host = field(default_factory=LocalHost)
+
+    @property
+    def log_path(self) -> Path:
+        return self.base_dir / "sidecar.log"
+
+    def wait_up(self, timeout: float = 60.0) -> "SidecarProcess":
+        deadline = time.monotonic() + timeout
+        prefix = "sidecar up at "
+        while time.monotonic() < deadline:
+            if self.process.poll() is not None:
+                tail = ""
+                try:
+                    tail = self.host.read_text(self.log_path)[-2000:]
+                except OSError:
+                    pass
+                raise RuntimeError(
+                    f"sidecar {self.name} exited with "
+                    f"{self.process.returncode}:\n{tail}")
+            try:
+                text = self.host.read_text(self.log_path)
+            except OSError:
+                text = ""
+            for line in text.splitlines():
+                if line.startswith(prefix):
+                    # tcp with port 0 resolves here; unix echoes the path
+                    self.address = line[len(prefix):].strip()
+                    return self
+            time.sleep(0.02)
+        raise TimeoutError(
+            f"sidecar {self.name} did not come up in {timeout}s")
+
+    def kill(self) -> None:
+        """SIGKILL mid-batch -- the kill-sidecar chaos primitive: clients
+        must degrade to their host tier and flows replay, never mis-commit."""
+        self.process.kill()
+        self.process.wait(timeout=10)
+
+    def sigcont(self) -> None:
+        import signal
+
+        self.process.send_signal(signal.SIGCONT)
+
+    def terminate(self) -> None:
+        self.process.terminate()
+        try:
+            self.process.wait(timeout=5)
+        except subprocess.TimeoutExpired:
+            self.process.kill()
+            self.process.wait(timeout=5)
+
+
 def render_node_config(name: str, node_dir, netmap, notary: str = "none",
                        raft_cluster: tuple[str, ...] = (),
                        cordapps: tuple[str, ...] = (),
@@ -421,6 +487,85 @@ class Driver:
             for row in handles:
                 for h in row:
                     h.wait_up()
+        return handles
+
+    _SIDECAR_ARGV = [sys.executable, "-m", "corda_tpu_torch.crypto.sidecar"]
+
+    def start_sidecar(self, name: str = "sidecar", verifier: str = "torch",
+                      device: str = "accelerator", coalesce_us: int = 2000,
+                      max_sigs: int = 4096, depth: int = 2,
+                      address: str | None = None,
+                      env_extra: dict | None = None,
+                      wait: bool = True,
+                      devices: int | None = None,
+                      adaptive_coalesce: bool = False,
+                      host: Host | None = None) -> SidecarProcess:
+        """Spawn ONE verification sidecar for the host (crypto/sidecar.py).
+        Point node processes at it via `[batch] sidecar = "<address>"` (or
+        CORDA_TPU_SIDECAR in env_extra) so their verify batches coalesce
+        across processes. Default address: a unix socket under the
+        sidecar's base dir (falls back to a short temp dir when the path
+        would blow the ~108-byte AF_UNIX limit).
+
+        device: "accelerator" runs the sidecar's verifier on the card
+        (``--device cuda``), "cpu" hides the card and runs it on the CPU.
+        devices=N splits each batch across N devices (TorchMeshVerifier);
+        on "cpu" that is N copies of the CPU device."""
+        host = host or self.host
+        side_dir = self.base_dir / name
+        host.mkdir(side_dir)
+        if address is None:
+            address = str(side_dir / "sc.sock")
+            if len(address) > 90:
+                import tempfile
+
+                address = str(Path(tempfile.mkdtemp(
+                    prefix="corda-tpu-sc-")) / "sc.sock")
+        env = _node_env(device)
+        if env_extra:
+            env.update({k: str(v) for k, v in env_extra.items()})
+        argv = self._SIDECAR_ARGV + [
+            "--socket", address, "--verifier", verifier,
+            "--device", "cuda" if device == "accelerator" else "cpu",
+            "--coalesce-us", str(coalesce_us),
+            "--max-sigs", str(max_sigs), "--depth", str(depth)]
+        if devices:
+            argv += ["--devices", str(devices)]
+        if adaptive_coalesce:
+            argv += ["--adaptive-coalesce"]
+        process = host.spawn(argv, side_dir / "sidecar.log",
+                             self._NODE_CWD, env)
+        handle = SidecarProcess(name, side_dir, address, process, host=host)
+        # Rides the node list so stop_all terminates it with the cluster.
+        self.nodes.append(handle)
+        if wait:
+            handle.wait_up()
+        return handle
+
+    def start_federation(self, count: int = 2,
+                         name_prefix: str = "fedhost",
+                         verifier: str = "cpu", device: str = "cpu",
+                         coalesce_us: int = 2000, max_sigs: int = 4096,
+                         depth: int = 2, devices: int | None = None,
+                         env_extra: dict | None = None,
+                         wait: bool = True) -> list[SidecarProcess]:
+        """Spawn `count` sidecar servers as SIMULATED HOSTS for the
+        federated verify plane (crypto/federation.py) -- each its own
+        process with its own socket, scheduler and device(s), so
+        cross-host routing/hedging/degrade runs on one box. Point nodes at
+        the tier by joining the returned handles' addresses with "," into
+        `[batch] federation_hosts` (or CORDA_TPU_FEDERATION in env_extra).
+        Kill any one handle to exercise the per-host quarantine -> re-probe
+        -> re-admit path."""
+        handles = [
+            self.start_sidecar(
+                name=f"{name_prefix}{i}", verifier=verifier, device=device,
+                coalesce_us=coalesce_us, max_sigs=max_sigs, depth=depth,
+                devices=devices, env_extra=env_extra, wait=False)
+            for i in range(count)]
+        if wait:
+            for h in handles:
+                h.wait_up()
         return handles
 
     def restart_node(self, handle: NodeProcess,

@@ -346,18 +346,27 @@ def _start_nodes(api, base_dir, specs) -> list:
     return nodes
 
 
-def make_tcp_nodes(api, base_dir, verifier: str, validating: bool) -> tuple:
+def make_tcp_nodes(api, base_dir, verifier: str, validating: bool,
+                   tls: bool = False, notary_batch=None) -> tuple:
     """(notary, alice, bob): started ``Node``s over localhost TCP under
     ``base_dir``, sharing one netmap file, each with ``verifier`` (a config
     kind) and the default ``[batch]`` policy (max_sigs 4096, max_wait_ms
     2.0, the async verify pump on). Each
     node's identity is seeded (``node_seed``) through its database before
     the node opens it. Each state machine's verifier, and the async pump's,
-    is wrapped in a TimedVerifier."""
+    is wrapped in a TimedVerifier. ``tls``: every node speaks mutual TLS
+    (certificates from the dev CA beside the netmap file, or already in a
+    node's ``certificates`` directory). ``notary_batch``: the notary's
+    ``[batch]`` (a BatchConfig, e.g. naming ``federation_hosts``)."""
     kind = "validating" if validating else "simple"
-    return tuple(_start_nodes(api, base_dir, [
-        (name, {"notary": kind if name == NODE_NAMES[0] else "none",
-                "verifier": verifier}) for name in NODE_NAMES]))
+    specs = []
+    for name in NODE_NAMES:
+        kw = {"notary": kind if name == NODE_NAMES[0] else "none",
+              "verifier": verifier, "tls": tls}
+        if name == NODE_NAMES[0] and notary_batch is not None:
+            kw["batch"] = notary_batch
+        specs.append((name, kw))
+    return tuple(_start_nodes(api, base_dir, specs))
 
 
 def _settle(step, done, timeout_s: float) -> None:

@@ -12,8 +12,11 @@ through a raft-simple cluster of three port ``Node``s, trades papers for
 cash over the MockNetwork and over three port ``Node``s on the indexed
 vault, changes two states' notary, agrees a SIMM portfolio valuation
 through the rate oracle, issues, fixes and settles an interest-rate swap,
-notarises 3-of-3 board moves, and must end with neither jax nor
-corda_tpu loaded.
+notarises 3-of-3 board moves, builds a node's TLS material from the dev
+CA, verifies a clause contract loaded from an attachment (which names the
+platform as ``corda_tpu.<x>``) under the deterministic sandbox, and
+verifies a batch through a two-host federation of the port's sidecar
+processes, and must end with neither jax nor corda_tpu loaded.
 """
 
 import ast
@@ -97,6 +100,13 @@ NOTARY_PATH_MODULES = [
     "contracts/universal.py", "finance/fixable_deal.py", "finance/irs.py",
     "tools/simm.py", "tools/portfolio.py", "testing/simm_load.py",
     "testing/multisig_load.py",
+    # Mutual TLS with the doorman, contracts from attachments under the
+    # sandbox, and the multi-device verify plane.
+    "crypto/x509.py", "crypto/certsigning.py", "contracts/clauses.py",
+    "contracts/sandbox.py", "contracts/attachments_loader.py",
+    "testing/contract_load.py", "ops/sharded.py", "crypto/federation.py",
+    "crypto/sidecar.py", "crypto/provider.py", "crypto/async_verify.py",
+    "node/verify_client.py",
 ]
 
 
@@ -225,6 +235,30 @@ net, mn, mt = ml.make_move_network(mapi, provider.CpuVerifier())
 res = ml.run_moves(mapi, net, mn, mt, *ml.build_moves(mapi, mn, mt, 8, 3))
 assert [o[0] for o in res["outcomes"]] == ["ok"] * 7 + ["NotaryException"]
 net.stop_nodes()
+# TLS material from the dev CA; an attachment's clause contract under the
+# sandbox; a batch through a two-host federation of port sidecars.
+from corda_tpu_torch.crypto import x509
+from corda_tpu_torch.contracts.sandbox import DeterministicSandbox
+from corda_tpu_torch.testing import contract_load as cl
+with tempfile.TemporaryDirectory() as tmp:
+    paths = x509.generate_dev_tls_material(tmp + "/Alice", tmp, "Alice")
+    assert all(p.exists() for p in paths.values())
+net, n, a, b = nl.make_network(api, provider.CpuVerifier(), False)
+views = cl.contract_views(nl.build_workload(api, n, a, b, 12, 1, 1, 3))
+net.stop_nodes()
+contract = cl.load_clause_contract()
+assert cl.verdicts(contract, views, DeterministicSandbox()) == \
+    cl.verdicts(contract, views)
+from corda_tpu_torch.crypto.federation import FederatedVerifier
+from corda_tpu_torch.testing.driver import driver
+with tempfile.TemporaryDirectory() as tmp:
+    with driver(tmp) as d:
+        hosts = d.start_federation(2, verifier="cpu", device="cpu",
+                                   coalesce_us=0)
+        fed = FederatedVerifier([h.address for h in hosts],
+                                deadline_ms=20_000.0, device_min_sigs=0)
+        assert fed.verify_batch(jobs).tolist() == want
+        assert fed.device_batches == 1 and fed.fallbacks == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu"))
 assert not bad, bad

@@ -10,6 +10,9 @@ byte-equal and decodable by the other package.
 
 import dataclasses
 import importlib
+import subprocess
+import sys
+from pathlib import Path
 from types import ModuleType, SimpleNamespace
 
 import pytest
@@ -141,9 +144,17 @@ def test_oracle_privacy_only_commands_revealed(pkg):
 _DEAL_TYPES: dict = {}
 
 
+# The acceptor's flow name in each package's registry. It belongs to this
+# file alone: tests/test_oracle.py registers its own SwapAcceptor class
+# under "SwapAcceptor", and a registry refuses a second class under one
+# name, so sharing it would fail whichever test ran second in a process.
+ACCEPTOR_FLOW_NAME = "TorchParitySwapAcceptor"
+
+
 def _deal_types(pkg):
     """SwapCommand, SwapDeal and the SwapAcceptor flow, registered once
-    with ``pkg``'s codec and flow registry."""
+    with ``pkg``'s codec and flow registry (the flow under
+    ACCEPTOR_FLOW_NAME)."""
     if pkg in _DEAL_TYPES:
         return _DEAL_TYPES[pkg]
     s = _m(pkg, "contracts.structures")
@@ -189,7 +200,7 @@ def _deal_types(pkg):
         def parties(self):
             return [self.party_a, self.party_b]
 
-    @_m(pkg, "flows.api").register_flow(name="SwapAcceptor")
+    @_m(pkg, "flows.api").register_flow(name=ACCEPTOR_FLOW_NAME)
     class SwapAcceptor(_m(pkg, "flows.deal").DealAcceptorFlow):
         def validate_terms(self, deal):
             accepted.append(deal.notional)
@@ -245,6 +256,31 @@ def test_deal_agreed_signed_and_finalised(kind, notional):
     assert ours[1] == [notional]
     if notional > 1_000_000:  # the acceptor refuses: the session ends
         assert ours[0] == "FlowSessionException"
+
+
+def test_deal_types_leave_the_reference_flow_name_free():
+    """Registering this file's acceptor in the JAX package's flow registry
+    must not take the name tests/test_oracle.py registers its own
+    acceptor under."""
+    api = _m("corda_tpu", "flows.api")
+    acceptor = _deal_types("corda_tpu")[2]
+    assert api.flow_registry.get(ACCEPTOR_FLOW_NAME) is acceptor
+    assert api.flow_registry.get("SwapAcceptor") is None
+
+
+def test_reference_deal_test_passes_after_this_file_in_one_process():
+    """The order xdist's --dist loadfile may pick on one worker: this
+    file's deal cases, then the reference's TestTwoPartyDeal, in one
+    interpreter."""
+    here = Path(__file__).resolve()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:xdist",
+         "-p", "no:cacheprovider", "-p", "no:randomly",
+         f"{here}::test_deal_agreed_signed_and_finalised",
+         f"{here.parent / 'test_oracle.py'}::TestTwoPartyDeal"],
+        cwd=here.parent.parent, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-2000:]
+    assert "4 passed" in proc.stdout, proc.stdout[-2000:]
 
 
 # --- the tear-off and the wire types ----------------------------------------

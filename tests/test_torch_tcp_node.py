@@ -1,11 +1,9 @@
 """The port's node over real localhost TCP sockets + sqlite, on the CPU.
 
-The port's mirror of ``tests/test_tcp_node.py`` (every test but the mutual
-TLS one, whose certificate maker is not ported: here ``tls = true`` must
-raise): each port ``Node`` owns its own sqlite file and TCP listener, runs
-``verifier = "cpu"`` (the port's default, ``"torch"``, needs the card) and
-the test round-robins ``run_once()`` as the scheduler. Every wait is
-bounded by its own timeout.
+The port's mirror of ``tests/test_tcp_node.py``: each port ``Node`` owns its
+own sqlite file and TCP listener, runs ``verifier = "cpu"`` (the port's
+default, ``"torch"``, needs the card) and the test round-robins
+``run_once()`` as the scheduler. Every wait is bounded by its own timeout.
 """
 
 import time
@@ -221,13 +219,41 @@ class TestKillAtStepSqlite:
 
 
 class TestTlsTransport:
-    def test_tls_raises_until_x509_is_ported(self, tmp_path):
-        """The transport's mutual-TLS branch is copied, but its certificate
-        maker (crypto/x509.py) waits for a later slice: a node configured
-        with tls = true raises before it opens a store or a listener."""
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            make_node(tmp_path, "Notary", notary="simple", tls=True)
-        assert not (tmp_path / "Notary").exists()
+    def test_notarisation_over_mutual_tls(self, tmp_path):
+        """TLS-enabled nodes (certs chained to the shared dev CA) complete a
+        notarisation; a plaintext client cannot talk to a TLS node."""
+        notary = make_node(tmp_path, "Notary", notary="simple", tls=True)
+        alice = make_node(tmp_path, "Alice", tls=True)
+        nodes = [notary, alice]
+        try:
+            for n in nodes:
+                n.refresh_netmap()
+            assert (tmp_path / "dev-ca.pem").exists()
+            assert (tmp_path / "Alice" / "certificates"
+                    / "tls-cert.pem").exists()
+            stx = issue_and_move(alice, notary.identity, magic=21)
+            h = alice.start_flow(NotaryClientFlow(stx))
+            pump_until(nodes, lambda: h.result.done)
+            h.result.result().verify(stx.id.bytes)
+
+            # A plaintext endpoint is refused by the TLS listener: its sends
+            # never ack (handshake bytes are not a valid frame).
+            from corda_tpu_torch.node.messaging.api import TopicSession
+            from corda_tpu_torch.node.messaging.tcp import TcpMessaging
+
+            plain = TcpMessaging("127.0.0.1", 0).start()
+            plain.send(TopicSession("platform.session", 0), b"junk",
+                       notary.messaging.my_address)
+            before = notary.smm.metrics["started"]
+            deadline = time.monotonic() + 1.5
+            while time.monotonic() < deadline:
+                for n in nodes:
+                    n.run_once(timeout=0.01)
+            assert notary.smm.metrics["started"] == before
+            plain.stop()
+        finally:
+            for n in nodes:
+                n.stop()
 
 
 class TestHostileSocket:
@@ -516,36 +542,68 @@ class TestRoundTransactions:
 
 
 # ---------------------------------------------------------------------------
-# Features whose modules wait for a later slice, and the boot warm
+# TLS, the federation and the sidecar's device stamp, and the boot warm
 # ---------------------------------------------------------------------------
 
 from corda_tpu_torch.node import node as node_module  # noqa: E402
 from corda_tpu_torch.node.config import VaultConfig  # noqa: E402
 
 
-@pytest.mark.parametrize("kw, item", [
-    ({"tls": True}, "3"),
-    ({"batch": BatchConfig(federation_hosts="h1:1,h2:2")}, "6"),
+def _check_tls(node, tmp_path):
+    assert node.messaging._tls_server_ctx is not None
+    assert (tmp_path / "N" / "certificates" / "tls-key.pem").exists()
+    assert (tmp_path / "dev-ca.pem").exists()  # beside the network map
+
+
+def _check_federation(node, tmp_path):
+    from corda_tpu_torch.crypto.federation import FederatedVerifier
+
+    v = node.smm.verifier
+    assert isinstance(v, FederatedVerifier)
+    assert [c.address for c in v.channels] == ["h1:1", "h2:2"]
+
+
+def _check_sidecar_devices(node, tmp_path):
+    from corda_tpu_torch.node.verify_client import SidecarVerifier
+
+    v = node.smm.verifier
+    assert type(v) is SidecarVerifier and v.address == "sidecar.sock"
+    # The stamp only: the client never contacts the sidecar at boot.
+    assert v.devices == 2 and v.sidecar_stats()["devices"] == 2
+
+
+@pytest.mark.parametrize("kw, check", [
+    ({"tls": True}, _check_tls),
+    ({"batch": BatchConfig(federation_hosts="h1:1, h2:2")},
+     _check_federation),
     ({"batch": BatchConfig(sidecar="sidecar.sock", sidecar_devices=2)},
-     "6"),
+     _check_sidecar_devices),
 ], ids=["tls", "federation_hosts", "sidecar_devices"])
-def test_unported_feature_raises_naming_its_item(tmp_path, kw, item):
-    config = NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
-                        network_map=tmp_path / "netmap.json",
-                        verifier="cpu", **kw)
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP.md queue 1 item {item}\)"):
-        Node(config)
-    assert not (tmp_path / "N").exists()  # nothing was opened
+def test_feature_config_boots(tmp_path, kw, check):
+    """Every configuration the reference's Node accepts boots on the CPU:
+    mutual TLS, the federation and the sidecar client's device stamp."""
+    node = Node(NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
+                           network_map=tmp_path / "netmap.json",
+                           verifier="cpu", **kw)).start()
+    try:
+        check(node, tmp_path)
+    finally:
+        node.stop()
 
 
 @pytest.mark.parametrize("env", ["CORDA_TPU_FEDERATION"])
-def test_unported_feature_env_raises(tmp_path, monkeypatch, env):
-    monkeypatch.setenv(env, "1")
-    with pytest.raises(NotImplementedError, match="queue 1 item"):
-        Node(NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
-                        network_map=tmp_path / "netmap.json",
-                        verifier="cpu"))
+def test_feature_env_selects_the_federation(tmp_path, monkeypatch, env):
+    from corda_tpu_torch.crypto.federation import FederatedVerifier
+
+    monkeypatch.setenv(env, "h0.sock,h1.sock,h2.sock")
+    node = Node(NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
+                           network_map=tmp_path / "netmap.json",
+                           verifier="cpu")).start()
+    try:
+        assert isinstance(node.smm.verifier, FederatedVerifier)
+        assert len(node.smm.verifier.channels) == 3
+    finally:
+        node.stop()
 
 
 # ---------------------------------------------------------------------------
