@@ -99,8 +99,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                  over the wave's leaf messages, 256 ... 131,072.
  19. oversize -- hash_many_auto on 2,049 messages of 1 MiB (more than one
                  launch takes) = hashlib, in at least two launches.
- 20. notary   -- the notary's main path: 1,000 DummyContract issue-and-move
-                 transactions (10 with a flipped signature byte) plus 5
+ 20. notary   -- the notary's main path: 500 DummyContract issue-and-move
+                 transactions (5 with a flipped signature byte) plus 5
                  second spends, NotaryClientFlow from Alice over the port's
                  MockNetwork to a simple and to a validating notary, every
                  micro-batch of the verify pump through
@@ -152,7 +152,7 @@ Phases, in order; any failure exits non-zero and prints no result:
                  raft-simple and raft-validating, one burst each, every
                  node on "torch" and on "cpu" in the turns card,
                  host; card outcomes and notary signatures must
-                 equal the host's, exactly the 10 tampered moves and the
+                 equal the host's, exactly the 5 tampered moves and the
                  5 second spends refused, all three members' committed
                  inputs equal to each other's and to the notarised
                  transactions, every batch at or above the crossover on
@@ -183,18 +183,18 @@ Phases, in order; any failure exits non-zero and prints no result:
                  process over localhost TCP, each on its own sqlite with
                  the indexed vault and a web API; BankA's vault seeded
                  with 100,000 GBP cash states (seed_states) before it
-                 boots; BankB issues and notarises 200 CommercialPapers,
-                 BankA self-issues 200 USD cash states, then 200
+                 boots; BankB issues and notarises 100 CommercialPapers,
+                 BankA self-issues 100 USD cash states, then 100
                  SellerFlow / BuyerFlow trades run 8 at a time, every node
                  on "torch" and then on "cpu"; every trade must settle,
                  the notary commit exactly the trades' inputs, BankA hold
                  the papers and BankB the cash, the vaults equal the
                  host's, every batch at or above the crossover take the
-                 card; RPC vault_page walks BankA's 100,400 rows with no
+                 card; RPC vault_page walks BankA's 100,200 rows with no
                  duplicate or gap, its cash summing to vault_balances;
                  /api/status and /metrics answer on every node; each
                  bank's map, learned over the wire, lists the other bank
-                 and the notary. (b) the same 200 trades over MockNetwork
+                 and the notary. (b) the same 100 trades over MockNetwork
                  one at a time (bench_trades), card and host. (c)
                  NotaryChangeFlow moves 16 DummyMultiOwnerStates of Alice
                  and Bob from Notary to Notary2, card and host; outcomes
@@ -246,7 +246,7 @@ Phases, in order; any failure exits non-zero and prints no result:
                  (a)'s card run, every batch at or above the crossover on
                  the card, and a plaintext client's frame refused;
                  notarisations/s and p50 / p99 / max beside phase 21
-                 (a)'s plaintext numbers. (b) those 1,000 moves'
+                 (a)'s plaintext numbers. (b) those 500 moves'
                  signatures in one card verify_batch = the oracle; a
                  contract of two clauses (AllComposition), shipped as an
                  attachment zip with a helper module, loaded through
@@ -272,12 +272,38 @@ Phases, in order; any failure exits non-zero and prints no result:
                  (e) phase 21 (a)'s validating burst with the notary's
                  [batch] federation_hosts naming two card sidecars:
                  outcomes = phase 21 (a)'s, every batch through a sidecar.
- 28. the verify kernel's registers, static SASS counts, resident blocks
+ 28. loadtest -- the reference's own load harness, the port's
+                 tools/loadtest, as bench_raft_cluster drives it: (a)
+                 run_loadtest_multiprocess, 1,000 width-32 FirehoseFlow
+                 transactions from two client processes through a
+                 raft-validating cluster of three member processes, every
+                 member's verification through one sidecar process on the
+                 card (verifier "torch", notary_device "accelerator");
+                 (b) the same on the host (every process on "cpu", no
+                 sidecar). Each must commit all 1,000, and each member's
+                 sqlite commit log must hold the same 1,000 inputs; the
+                 card leg's sidecar must take device batches and launch
+                 the kernels. sigs/s, tx/s, p50 / p99, device occupancy,
+                 the sidecar's batch-size histogram, each member's stamp
+                 and the warm wait, card beside host. (c) run_latency_sweep
+                 at 60, 240, 720 tx/s (250 width-4 flows a rung) against
+                 the same cluster through a card sidecar: p50 / p90 / p99
+                 a rung, every flow committed. (d) (a) and (c) as one
+                 bench report whose ceiling is phase 7's stream rate on
+                 this card: obs.doctor.diagnose, the perfdoctor CLI on it
+                 and --gate over a trajectory under build/phase28/, both
+                 exit 0. (e) autotune --validate reports no violation;
+                 run_autotune with the real ingest runner (2,400 tx/s, 400
+                 transactions), the incumbent and one candidate, seeded,
+                 on (d)'s verdict: the decision sequence, each
+                 configuration's metrics and gate outcome.
+ 29. the verify kernel's registers, static SASS counts, resident blocks
      per SM and waves at N_MAIN, and the SHA-256 kernels' SASS counts (no
      byte loads in sha256_many's block loop) and occupancy at the wave;
      the sharded verify's device window against the two kernels' bounds;
-     the kernels line (launches: the main path's and the card paths of
-     phases 24-27), then the device line (last).
+     the kernels line (the four kernels, launches the main path's and
+     the card paths of phases 24-28, and the sharded verify of phase
+     27), then the device line (last).
 
 Everything is made from fixed seeds; the oracle (crypto/ref_ed25519.py)
 decides every expected answer.
@@ -1113,9 +1139,10 @@ QOS_CLOSED_S = 2.0
 # Each open-loop mode of the mix runs long enough for a few hundred
 # interactive requests (about 8 a second at 0.5 R); a p99 is reported only
 # over P99_MIN_N requests or more, since under that it is the maximum.
-# 30 s a mode (45 before phases 26-27 were added) keeps that above
-# P99_MIN_N and the whole run inside its time limit.
-QOS_MIX_S = 30.0
+# 20 s a mode (45, then 30, before phases 26-28 were added) keeps that
+# above P99_MIN_N (~160 interactive requests) and the whole run inside its
+# time limit.
+QOS_MIX_S = 20.0
 P99_MIN_N = 100
 QOS_ADAPT_S = 3.0       # the adaptive phase prints a trajectory, no tail
 QOS_WORKERS = 32        # the open-loop generator's connections
@@ -2296,11 +2323,14 @@ def out_dir() -> str:
 
 # --- the notary: flows, the verify pump, the in-memory network -------------
 
-# BASELINE config 1's size: raft-notary-demo's 1,000 DummyContract
-# transactions (samples/raft-notary-demo, NotaryDemo.kt), 1% of them with a
-# flipped signature byte, plus 5 second spends that must meet a conflict.
-NOTARY_N = 1000
-NOTARY_BAD = 10
+# BASELINE config 1's workload (samples/raft-notary-demo, NotaryDemo.kt):
+# DummyContract issue-and-move transactions, 1% of them with a flipped
+# signature byte, plus 5 second spends that must meet a conflict. Config
+# 1's size, 1,000, runs through the reference's own harness in phase 28;
+# phases 20-22, 26 and 27 run half of it, so that the whole run stays
+# inside its time limit.
+NOTARY_N = 500
+NOTARY_BAD = 5
 NOTARY_DOUBLE = 5
 NOTARY_SEED = SEED + 7
 NOTARY_WAVES = (16, 128)
@@ -2978,7 +3008,7 @@ def phase_node(provider, kernels, mock_res, card):
     three port Nodes (Notary, Alice, Bob) over localhost TCP, each on its
     own sqlite with a seeded identity, round-robin run_once with [batch]
     max_sigs 4096, max_wait_ms 2.0 and the async verify pump on; phase
-    20's workload (1,000 moves, 10 with a flipped signature byte, 5 second
+    20's workload (500 moves, 5 with a flipped signature byte, 5 second
     spends) to a simple and to a validating notary, one burst each, every
     node on verifier "torch" (card) and "cpu" (host) in the turns card,
     host; one more simple card burst under torch.profiler.
@@ -3020,7 +3050,7 @@ def phase_node(provider, kernels, mock_res, card):
 # notary (BASELINE.json configs[0]; the reference demo starts a raft
 # validating notary, bench.py:570-572).
 RAFT_KINDS = (False, True)  # raft-simple, raft-validating
-SHARD_FLOWS = 200  # phase 22 (b): fewer than phase 20's 1,000, to save time
+SHARD_FLOWS = 200  # phase 22 (b): fewer than phase 20's, to save time
 SHARD_BAD = 2
 SHARD_DOUBLE = 1
 RAFT_STAGES = ("pump", "raft", "services", "verify", "checkpoint", "commit")
@@ -3478,7 +3508,9 @@ def phase_raft(provider, kernels, node_res, card):
 
 # BASELINE config 2 (samples/trader-demo: CommercialPaper sold for cash
 # through a validating notary; bench.py:410-475 bench_trades).
-TRADE_N = 200
+# 100 trades a side (200 before phase 28 was added: the whole run must stay
+# inside its time limit); BankA's ballast stays at full size.
+TRADE_N = 100
 TRADE_IN_FLIGHT = 8  # (a): overlapping trades exercise soft-locked selection
 TRADE_SEED = SEED + 23
 # bench_vault_scaling's middle size (bench.py:1124), the bank-day bulk path:
@@ -4107,7 +4139,7 @@ def phase_simm(provider, kernels, card) -> dict:
 # configs[3]): bench_multisig's batch (bench.py:478-522) at its own 2,048
 # transactions and at the baseline's 10,000, and MOVES_N board moves
 # notarised in one burst (cut from the baseline's 10,000 transactions to
-# the 1,000 flows of configs 1 and 2, for the run's time limit).
+# config 1's 1,000 flows, for the run's time limit).
 MULTISIG_TILES = {2_048: 1_792, 10_000: 8_750}  # transactions: fulfilled
 MOVES_N = 1_000
 MOVES_SEED = SEED + 25
@@ -4278,7 +4310,7 @@ def phase_tls_contracts(ref, provider, kernels, node_res, card) -> dict:
     a CertificateSigningServer issues Alice's over HTTP through
     CertificateSigner before her node boots; a simple and a validating
     burst, each equal to phase 21 (a)'s card run, and a plaintext client's
-    frame refused. (b) The 1,000 moves' signatures through one card
+    frame refused. (b) The 500 moves' signatures through one card
     verify_batch, held to the oracle; then contract_load's clause contract,
     shipped as an attachment zip with a helper module, loaded through
     AttachmentsModuleLoader and run over every move under
@@ -4614,8 +4646,9 @@ def phase_mesh_federation(provider, sidecar, kernels, jobs, want, main_res,
     got = mesh.verify_batch(jobs)
     torch.cuda.synchronize()
     out["launches"] = {k: kernels.LAUNCHES[k] for k in VERIFY_KERNELS}
+    out["max_abs_err"] = int((got != want).sum())
     check(np.array_equal(got, want),
-          f"mesh != oracle on {int((got != want).sum())} lanes")
+          f"mesh != oracle on {out['max_abs_err']} lanes")
     check(np.array_equal(got, single.verify_batch(jobs)),
           "the mesh's mask differs from TorchVerifier's")
     check(out["launches"] == {k: count for k in VERIFY_KERNELS},
@@ -4734,6 +4767,298 @@ def phase_mesh_federation(provider, sidecar, kernels, jobs, want, main_res,
         f"{fn['launches']}")
     out["seconds"] = time.perf_counter() - t0
     log(f"{card} | phase 27 seconds: {out['seconds']:.1f}")
+    return out
+
+
+# --- the reference's load harness: tools/loadtest on the card -------------
+
+# BASELINE config 1 at BASELINE size, as bench_raft_cluster drives it
+# (bench.py:555-614): 1,000 width-32 firehose transactions from two client
+# processes through a three-member raft-validating cluster of processes.
+LOAD_N_TX = 1000
+LOAD_WIDTH = 32
+LOAD_CLIENTS = 2
+# The open-loop ladder as bench.py:717 calls it.
+LOAD_LADDER = (60.0, 240.0, 720.0)
+LOAD_LADDER_N = 250
+LOAD_LADDER_WIDTH = 4
+# One real autotune run: make_ingest_runner's defaults (the CLI's), and
+# one candidate beyond the incumbent (run_autotune's budget counts the
+# candidates after it), so two measured ingest sweeps.
+TUNE_RATE = 2400.0
+TUNE_N_TX = 400
+TUNE_BUDGET = 1
+PHASE28_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase28")
+
+
+def stamp_line(name: str, s: dict) -> str:
+    """The member stamp's routing, round and raft fields on one line."""
+    side = s.get("sidecar") or {}
+    return (f"{name}: verifier {s.get('verifier')}, backend "
+            f"{s.get('kernel_backend')}, device {s.get('device')}, batches "
+            f"device {s.get('device_batches')} / host {s.get('host_batches')}"
+            f", occupancy {s.get('device_occupancy')}, effective min sigs "
+            f"{s.get('effective_min_sigs')}, sidecar batches "
+            f"{side.get('batches')} fallbacks {side.get('fallbacks')}, "
+            f"busiest stage {s.get('busiest_stage')}, raft role "
+            f"{s.get('raft_role')}, entries/batch "
+            f"{s.get('entries_per_batch')}, replication rtt "
+            f"{s.get('replication_rtt_ms_avg')} ms, overlap "
+            f"{s.get('overlap_ratio')}")
+
+
+def flagship_leg(loadtest, nl, side: str, card: str) -> dict:
+    """Phase 28 (a) on the card, (b) on the host: run_loadtest_multiprocess
+    as bench_raft_cluster calls it (bench.py:594-597). The card leg feeds
+    every member's verification to one sidecar process on the card; the
+    host leg runs every process on CpuVerifier. After the run each member's
+    committed inputs are read from its sqlite: every one must hold the same
+    LOAD_N_TX inputs."""
+    kw = ({"verifier": "torch", "notary_device": "accelerator",
+           "sidecar": True} if side == "card" else
+          {"verifier": "cpu", "notary_device": "cpu", "sidecar": False})
+    base = tempfile.mkdtemp(prefix=f"cts_load_{side}")
+    try:
+        t0 = time.perf_counter()
+        res = loadtest.run_loadtest_multiprocess(
+            n_tx=LOAD_N_TX, width=LOAD_WIDTH, clients=LOAD_CLIENTS,
+            notary="raft-validating", cluster_size=3, client_verifier="cpu",
+            base_dir=base, max_seconds=420.0, **kw)
+        wall = time.perf_counter() - t0
+        ledgers = {f"Raft{i}": nl.committed_inputs_at(
+            os.path.join(base, f"Raft{i}", "node.db")) for i in range(3)}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    from corda_tpu_torch.crypto.provider import WARM_SIZES
+
+    label = f"loadtest flagship {side}"
+    check(res.tx_requested == LOAD_N_TX and res.tx_committed == LOAD_N_TX
+          and res.tx_rejected == 0,
+          f"{label}: {res.tx_committed} of {res.tx_requested} committed, "
+          f"{res.tx_rejected} rejected")
+    first = ledgers["Raft0"]
+    check(all(len(v) == LOAD_N_TX and v == first for v in ledgers.values()),
+          f"{label}: members' committed inputs "
+          f"{ {m: len(v) for m, v in ledgers.items()} } differ or are not "
+          f"{LOAD_N_TX}")
+    stamps = res.node_stamps
+    dev_b = sum(s.get("device_batches") or 0 for s in stamps.values())
+    host_b = sum(s.get("host_batches") or 0 for s in stamps.values())
+    occupancy = round(dev_b / (dev_b + host_b), 3) if dev_b + host_b else 0.0
+    out = {"tx_committed": res.tx_committed, "tx_rejected": res.tx_rejected,
+           "sigs_verified": res.sigs_verified,
+           "sigs_per_sec": res.sigs_per_sec, "tx_per_sec": res.tx_per_sec,
+           "p50_ms": res.p50_ms, "p99_ms": res.p99_ms,
+           "duration_s": res.duration_s, "wall_s": res.wall_s,
+           "harness_wall_s": wall, "device_warm_wait_s":
+           res.device_warm_wait_s, "device_batches": dev_b,
+           "host_batches": host_b, "device_occupancy": occupancy,
+           "ledger_inputs": len(first), "node_stamps": stamps,
+           "sidecar": res.sidecar, "per_client": res.per_client,
+           "launches": {}}
+    log(f"{card} | {label}: {res.tx_committed}/{LOAD_N_TX} committed "
+        f"(width {LOAD_WIDTH}, {LOAD_CLIENTS} clients), every member's "
+        f"ledger holds the same {len(first)} inputs; {res.sigs_per_sec} "
+        f"sigs/s ({res.sigs_verified} sigs), {res.tx_per_sec} tx/s, p50 "
+        f"{res.p50_ms} ms, p99 {res.p99_ms} ms; device_occupancy "
+        f"{occupancy} ({dev_b} device / {host_b} host member batches); "
+        f"device_warm_wait_s {res.device_warm_wait_s}; measured "
+        f"{res.duration_s} s, harness {wall:.1f} s")
+    for name, s in stamps.items():
+        log(f"{card} | {label} node_stamps {stamp_line(name, s)}")
+    if side == "card":
+        sc = res.sidecar or {}
+        check("error" not in sc and (sc.get("device_batches") or 0) > 0,
+              f"{label}: the sidecar took no device batch: {sc}")
+        check(not any((s.get("sidecar") or {}).get("fallbacks")
+                      for s in stamps.values()),
+              f"{label}: a member fell back to its host tier")
+        out["launches"] = dict(sc.get("kernel_launches") or {})
+        check(out["launches"].get("ed25519_verify", 0) > 0,
+              f"{label}: the sidecar launched no verify kernel")
+        log(f"{card} | {label} sidecar: {sc.get('requests')} requests, "
+            f"{sc.get('batches')} batches ({sc.get('cross_request_batches')}"
+            f" across requests), {sc.get('sigs')} sigs, device "
+            f"{sc.get('device_batches')} / host {sc.get('host_batches')} "
+            f"batches, batch_sigs_hist {sc.get('batch_sigs_hist')}, kernel "
+            f"launches {out['launches']} (the boot warm's "
+            f"{len(WARM_SIZES)} included)")
+    return out
+
+
+def latency_ladder(loadtest, card: str) -> dict:
+    """Phase 28 (c): run_latency_sweep as bench.py:717 calls it, against
+    the raft-validating cluster, member 0's verification through a card
+    sidecar. Every rung must commit its LOAD_LADDER_N flows."""
+    base = tempfile.mkdtemp(prefix="cts_load_ladder")
+    try:
+        t0 = time.perf_counter()
+        sweep = loadtest.run_latency_sweep(
+            rates=LOAD_LADDER, n_tx=LOAD_LADDER_N, width=LOAD_LADDER_WIDTH,
+            notary="raft-validating", verifier="torch",
+            notary_device="accelerator", sidecar=True, base_dir=base)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    rungs = {}
+    for rate, r in sweep.items():
+        check(r.committed == LOAD_LADDER_N and r.rejected == 0,
+              f"loadtest ladder {rate:g} tx/s: {r.committed} of "
+              f"{LOAD_LADDER_N} committed, {r.rejected} rejected")
+        rungs[f"{rate:g}_tx_s"] = {
+            "p50_ms": r.p50_ms, "p90_ms": r.p90_ms, "p99_ms": r.p99_ms,
+            "tx_per_sec": r.tx_per_sec, "committed": r.committed}
+        log(f"{card} | loadtest ladder {rate:g} tx/s offered: "
+            f"{r.committed}/{LOAD_LADDER_N} committed, {r.tx_per_sec} tx/s, "
+            f"p50 {r.p50_ms} / p90 {r.p90_ms} / p99 {r.p99_ms} ms")
+    sc = sweep.sidecar or {}
+    check("error" not in sc, f"loadtest ladder: sidecar {sc}")
+    launches = dict(sc.get("kernel_launches") or {})
+    log(f"{card} | loadtest ladder sidecar: {sc.get('batches')} batches, "
+        f"device {sc.get('device_batches')} / host {sc.get('host_batches')},"
+        f" batch_sigs_hist {sc.get('batch_sigs_hist')}, kernel launches "
+        f"{launches}; harness {wall:.1f} s")
+    for name, s in sweep.node_stamps.items():
+        log(f"{card} | loadtest ladder node_stamps {stamp_line(name, s)}")
+    return {"rates": rungs, "node_stamps": sweep.node_stamps, "sidecar": sc,
+            "first_bottleneck": sweep.first_bottleneck,
+            "launches": launches, "harness_wall_s": wall}
+
+
+def run_cli(argv: list) -> tuple[int, str]:
+    """python -m <argv> from the repository root: (exit code, stdout)."""
+    proc = subprocess.run([sys.executable, "-m", *argv],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        log(proc.stderr[-2000:])
+    return proc.returncode, proc.stdout
+
+
+def diagnose_run(doctor, flagship: dict, ladder: dict, stream_res: dict,
+                 card: str) -> dict:
+    """Phase 28 (d): (a) and (c) as one bench report whose ceiling is this
+    run's own phase 7 stream rate on the card; obs.doctor.diagnose, then
+    the perfdoctor CLI on the artifact and --gate over a trajectory under
+    build/."""
+    ceiling = max(stream_res["sigs_s"]["stream"])
+    section = {k: v for k, v in flagship.items()
+               if k not in ("per_client", "launches")}
+    section.update({"harness": "multiprocess-driver", "n_tx": LOAD_N_TX,
+                    "width": LOAD_WIDTH, "notary": "raft-validating",
+                    "loadtest_sigs_per_sec": flagship["sigs_per_sec"],
+                    "committed": flagship["tx_committed"],
+                    "verifier": "torch", "notary_device": "accelerator"})
+    artifact = {"metric": "verified_sigs_per_sec", "card": card,
+                "e2e_stream_sigs_per_sec": ceiling,
+                "baseline_configs": {
+                    "raft_validating_3node": section,
+                    "raft_open_loop_latency": {
+                        k: ladder[k] for k in ("rates", "node_stamps",
+                                               "sidecar")}}}
+    verdict = doctor.diagnose(doctor.extract_signals(artifact))
+    roof = verdict["roofline"]
+    log(f"{card} | doctor: first_bottleneck {verdict['first_bottleneck']}; "
+        f"roofline ceiling {roof['ceiling_sigs_per_sec']:.0f} sigs/s "
+        f"({roof['ceiling_source']}, phase 7), e2e "
+        f"{roof['e2e_sigs_per_sec']} sigs/s, gap_factor "
+        f"{roof['gap_factor']}, layers {roof['layers']}; bottlenecks "
+        + "; ".join(f"{b['cause']} {b.get('score')}: "
+                    f"{b.get('next_experiment')}"
+                    for b in verdict["bottlenecks"]))
+    shutil.rmtree(PHASE28_DIR, ignore_errors=True)
+    os.makedirs(PHASE28_DIR)
+    path = os.path.join(PHASE28_DIR, "BENCH_phase28.json")
+    store = os.path.join(PHASE28_DIR, "TRAJECTORY.jsonl")
+    with open(path, "w") as f:
+        json.dump(artifact, f, default=str)
+    rc, out = run_cli(["corda_tpu_torch.tools.perfdoctor", path])
+    check(rc == 0, f"perfdoctor {path} exited {rc}")
+    cli = json.loads(out.strip().splitlines()[-1])
+    check(cli["first_bottleneck"] == verdict["first_bottleneck"],
+          f"perfdoctor's verdict {cli['first_bottleneck']} != diagnose's")
+    doctor.append_trajectory(store, doctor.normalize_record(
+        artifact, source=os.path.basename(path)))
+    rc, out = run_cli(["corda_tpu_torch.tools.perfdoctor", "--gate",
+                       "--trajectory", store])
+    check(rc == 0, f"perfdoctor --gate exited {rc}: {out[-500:]}")
+    log(f"{card} | perfdoctor on the artifact exit 0; --gate over "
+        f"{store} exit 0: {out.strip()[:300]}")
+    return {"artifact": artifact, "verdict": verdict,
+            "gate": json.loads(out.strip().splitlines()[-1])}
+
+
+def tune_run(verdict: dict, card: str) -> dict:
+    """Phase 28 (e): tools.autotune --validate, then run_autotune with the
+    real ingest runner on (d)'s verdict (the CLI's --explore fallback when
+    the verdict names no ingest-sweepable knob)."""
+    from corda_tpu_torch.autotune import controller
+
+    rc, out = run_cli(["corda_tpu_torch.tools.autotune", "--validate"])
+    valid = json.loads(out.strip().splitlines()[-1])
+    check(rc == 0 and valid["errors"] == [],
+          f"autotune --validate: exit {rc}, {valid}")
+    log(f"{card} | autotune --validate: {valid}")
+    try:
+        spec = controller.spec_from_verdict(verdict)
+    except ValueError as exc:
+        log(f"autotune: {exc}; sweeping the exploratory defaults")
+        spec = controller.exploratory_spec()
+    if spec.harness != "ingest_sweep":
+        log(f"autotune: the verdict's sweep runs {spec.harness}, which the "
+            "ingest runner does not measure; sweeping the exploratory "
+            "defaults")
+        spec = controller.exploratory_spec()
+    t0 = time.perf_counter()
+    record = controller.run_autotune(
+        spec, controller.make_ingest_runner(rates=(TUNE_RATE,),
+                                            n_tx=TUNE_N_TX),
+        budget=TUNE_BUDGET, seed=SEED,
+        verdict_consumed={"source": "BENCH_phase28.json",
+                          "first_bottleneck": verdict.get("first_bottleneck"),
+                          "experiment_id": spec.experiment_id})
+    wall = time.perf_counter() - t0
+    for c in record["candidates"]:
+        check("error" not in (c["metrics"] or {}),
+              f"autotune candidate {c['id']}: {c['metrics']}")
+        log(f"{card} | autotune candidate {c['id']} ({c['role']}, knob "
+            f"{c.get('knob')}): values {c['values']}, metrics "
+            f"{c['metrics']}, gate "
+            f"{'-' if c['gate'] is None else c['gate'].get('ok')}, "
+            f"accepted {c['accepted']}")
+    check(len(record["candidates"]) == TUNE_BUDGET + 1,
+          f"autotune measured {len(record['candidates'])} configurations")
+    log(f"{card} | autotune {record['experiment_id']} over "
+        f"{list(spec.knobs)}: decision_sequence "
+        f"{record['decision_sequence']}, improved {record['improved']}, "
+        f"committed {record['committed']}, baseline "
+        f"{record['baseline_value']} -> best {record['best_value']} "
+        f"{spec.metric}; {wall:.1f} s")
+    return {"validate": valid, "record": record, "seconds": wall}
+
+
+def phase_loadtest(kernels, stream_res, card) -> dict:
+    """Phase 28: the reference's own load harness, the port's
+    tools/loadtest, on the card (see the module docstring)."""
+    from corda_tpu_torch.obs import doctor
+    from corda_tpu_torch.testing import notary_load as nl
+    from corda_tpu_torch.tools import loadtest
+
+    t0 = time.perf_counter()
+    out = {"flagship": {side: flagship_leg(loadtest, nl, side, card)
+                        for side in ("card", "host")}}
+    a, b = out["flagship"]["card"], out["flagship"]["host"]
+    log(f"{card} | loadtest flagship card / host: {a['sigs_per_sec']} / "
+        f"{b['sigs_per_sec']} sigs/s, {a['tx_per_sec']} / {b['tx_per_sec']} "
+        f"tx/s, p50 {a['p50_ms']} / {b['p50_ms']} ms, p99 {a['p99_ms']} / "
+        f"{b['p99_ms']} ms, occupancy {a['device_occupancy']} / "
+        f"{b['device_occupancy']}")
+    out["ladder"] = latency_ladder(loadtest, card)
+    out["doctor"] = diagnose_run(doctor, a, out["ladder"], stream_res, card)
+    out["autotune"] = tune_run(out["doctor"]["verdict"], card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{card} | phase 28 seconds: {out['seconds']:.1f}")
     return out
 
 
@@ -5016,9 +5341,16 @@ def main() -> int:
     mesh_res = phase_mesh_federation(provider, sidecar, kernels, jobs, want,
                                      main_res, node_res, card)
 
+    # 28. the reference's own load harness: tools/loadtest driving the
+    # raft-validating flagship through a card sidecar, the latency ladder,
+    # the perf doctor and one real autotune run
+    load_res = phase_loadtest(kernels, stream_res, card)
+
     # The kernels line's launches: the main path's and each path of phases
-    # 24-27 on the card, each counted from 0 just before it (the sidecar
-    # processes' from their own counts, read over OP_STATS).
+    # 24-28 on the card, each counted from 0 just before it (the sidecar
+    # processes' from their own counts, read over OP_STATS; a sidecar the
+    # loadtest harness spawns counts from its birth, its boot warm
+    # included).
     fed = mesh_res["federation"]["card"]
     paths = {"main": main_res["launches"],
              "simm portfolios": simm_res["portfolios"]["card"]["launches"],
@@ -5035,7 +5367,10 @@ def main() -> int:
              "federated notary (sidecars)":
                  mesh_res["federated_node"]["launches"],
              "federated trio (in process)":
-                 mesh_res["federated_node"]["summary"]["launches"]}
+                 mesh_res["federated_node"]["summary"]["launches"],
+             "loadtest flagship (sidecar)":
+                 load_res["flagship"]["card"]["launches"],
+             "loadtest ladder (sidecar)": load_res["ladder"]["launches"]}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in kernels.LAUNCHES}
     log("kernel launches by path: " + "; ".join(
@@ -5112,6 +5447,19 @@ def main() -> int:
          "max_abs_err": max_err["sha256_pair"],
          "ms": pair["ms"], "plain_ms": pair["plain_ms"],
          "bound_ms": bound4, "bound_by": by4, "library_ms": None},
+        # The sharded verify (per-device launches of the two kernels on
+        # column slices): its device window at the main path's N, its
+        # plain version the two plain versions on the same batch (one
+        # card), its launches the mesh's and the mesh sidecar's.
+        {"name": "sharded_verify", "route": "cuda",
+         "source": "corda_tpu_torch/ops/sharded.py",
+         "replaces": "corda_tpu/ops/sharded.py:72",
+         "launches": (mesh_res["launches"]["ed25519_verify"]
+                      + mesh_res["sidecar"]["launches"]["ed25519_verify"]),
+         "max_abs_err": mesh_res["max_abs_err"],
+         "ms": shard_ms,
+         "plain_ms": main_res["p1_ms"] + main_res["p2_ms"],
+         "bound_ms": bound1 + bound2, "bound_by": by1, "library_ms": None},
     ]}
     record = {"card": card, "build_s": build_s, "n_main": N_MAIN,
               "host_tier": host_res, "main": main_res,
@@ -5125,6 +5473,7 @@ def main() -> int:
               "notary": notary_res, "node": node_res, "raft": raft_res,
               "trades": trade_res, "simm": simm_res, "multisig": multisig_res,
               "tls_contracts": tls_res, "mesh_federation": mesh_res,
+              "loadtest": load_res,
               "sharded_bound_ms": bound1 + bound2,
               "launches_by_path": paths,
               "ptxas": {s: ptxas_summary(_build, s) for s in _build.SOURCES},

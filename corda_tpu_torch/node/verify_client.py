@@ -26,6 +26,7 @@ Failure policy -- never a wrong answer, never a hang:
 
 from __future__ import annotations
 
+import os
 import socket
 import struct
 import threading
@@ -56,7 +57,9 @@ class SidecarVerifier(DeviceRoutedVerifier):
     batch whose requests carry an interactive deadline; while it is set,
     batches ship as OP_VERIFY_QOS so the sidecar's deadline scheduler can
     order and flush around them. A stale hint costs one early server
-    flush, never correctness. ``reprobe_cooldown_s``: after a failed round
+    flush, never correctness. ``device_min_sigs`` None takes
+    ``CORDA_TPU_SIDECAR_MIN_SIGS`` (the autotuner's knob), else 16, as in
+    the JAX package. ``reprobe_cooldown_s``: after a failed round
     trip, how long the degraded client waits between re-probes of the
     sidecar (5 s, the JAX package's default). ``devices``: the mesh width
     the configuration says the server owns ([batch] sidecar_devices),
@@ -66,10 +69,13 @@ class SidecarVerifier(DeviceRoutedVerifier):
     name = "sidecar"
 
     def __init__(self, address: str, deadline_ms: float = 2000.0,
-                 device_min_sigs: int = SIDECAR_MIN_SIGS_DEFAULT,
+                 device_min_sigs: int | None = None,
                  connect_timeout_s: float = 1.0,
                  reprobe_cooldown_s: float = 5.0,
                  devices: int | None = None):
+        if device_min_sigs is None:
+            device_min_sigs = int(os.environ.get(
+                "CORDA_TPU_SIDECAR_MIN_SIGS", SIDECAR_MIN_SIGS_DEFAULT))
         super().__init__(device_min_sigs=device_min_sigs)
         self.address = address
         self.deadline_s = float(deadline_ms) / 1e3
@@ -95,6 +101,12 @@ class SidecarVerifier(DeviceRoutedVerifier):
         self.last_verify_s: float | None = None
         self.last_tier: str | None = None
         self.qos_hint: tuple[int, int] | None = None
+
+    def reset_window(self) -> None:
+        """Drop every cached server snapshot, so the next stats fetch is
+        fresh (the autotune controller calls this between candidates; the
+        snapshot TTL would otherwise hand one candidate the last one's)."""
+        self._server_snapshots.clear()
 
     # -- routing ------------------------------------------------------------
 

@@ -363,6 +363,18 @@ def shard_groups_toml(groups, reserve_ttl_s: float = 15.0,
             "groups = [\n  " + rows + ",\n]")
 
 
+def _names_verifier(extra_toml: str) -> bool:
+    """Whether ``extra_toml`` sets the top-level ``verifier`` key (a key
+    before its first table header); the placement's default then yields."""
+    for line in extra_toml.splitlines():
+        line = line.strip()
+        if line.startswith("["):
+            return False
+        if line.split("=", 1)[0].strip() == "verifier" and "=" in line:
+            return True
+    return False
+
+
 def _node_env(device: str) -> dict:
     """Per-node device policy (the production topology: only the notary
     process owns the card; every other child stays on the host path).
@@ -410,7 +422,8 @@ class Driver:
                    config_overlay: dict | None = None,
                    host: Host | None = None) -> NodeProcess:
         """The node's verifier follows ``device``: "torch" on an
-        "accelerator" placement, "cpu" otherwise. env_extra: extra
+        "accelerator" placement, "cpu" otherwise, unless ``extra_toml``
+        names one (a top-level ``verifier = ...``). env_extra: extra
         environment for the child (e.g.
         CORDA_TPU_FAULT_PLAN=<plan.toml> to arm a chaos plan in that
         process without touching node.toml). config_overlay: per-knob
@@ -427,7 +440,8 @@ class Driver:
             name=name, node_dir=node_dir, netmap=self.netmap, notary=notary,
             raft_cluster=raft_cluster, cordapps=cordapps,
             extra_toml=extra_toml, rpc_users=rpc_users,
-            verifier="torch" if device == "accelerator" else "cpu"))
+            verifier=(None if _names_verifier(extra_toml)
+                      else "torch" if device == "accelerator" else "cpu")))
 
         env = _node_env(device)
         offset = _log_size(host, node_dir / "node.log")

@@ -16,11 +16,21 @@ notarises 3-of-3 board moves, builds a node's TLS material from the dev
 CA, verifies a clause contract loaded from an attachment (which names the
 platform as ``corda_tpu.<x>``) under the deterministic sandbox, and
 verifies a batch through a two-host federation of the port's sidecar
-processes, and must end with neither jax nor corda_tpu loaded.
+processes, imports the load harness, the perf doctor and the autotuner,
+and must end with neither jax nor corda_tpu loaded.
+
+A module's name can also reach an import as a string: a node imports each
+of its ``cordapps`` with ``importlib.import_module``, and the autotuner's
+validator imports the module an env knob names. No string constant in the
+port names a module under ``corda_tpu.``; the port's CLIs leave the
+reference's ``artifacts/TRAJECTORY.jsonl`` byte-unchanged.
 """
 
 import ast
+import hashlib
+import json
 import os
+import re
 import subprocess
 import sys
 
@@ -107,6 +117,11 @@ NOTARY_PATH_MODULES = [
     "testing/contract_load.py", "ops/sharded.py", "crypto/federation.py",
     "crypto/sidecar.py", "crypto/provider.py", "crypto/async_verify.py",
     "node/verify_client.py",
+    # The load, diagnosis and tuning plane.
+    "obs/stages.py", "obs/collect.py", "obs/doctor.py", "tools/ingest.py",
+    "tools/loadgen.py", "tools/loadtest.py", "tools/perfdoctor.py",
+    "tools/autotune.py", "autotune/__init__.py", "autotune/space.py",
+    "autotune/runtime.py", "autotune/controller.py", "testing/history.py",
 ]
 
 
@@ -121,6 +136,96 @@ def test_root_matching_is_exact():
     assert "corda_tpu_torch" not in FORBIDDEN
     assert _imported_roots(os.path.join(REPO, "chip_smoke.py")) >= {
         "corda_tpu_torch", "torch", "numpy"}
+
+
+# A module path under the JAX package, as a string: "corda_tpu.x" (the
+# port's own "corda_tpu_torch.x" does not match).
+_REFERENCE_MODULE = re.compile(r"(?<![\w/])corda_tpu\.[A-Za-z_]")
+
+
+def _string_constants(path):
+    """(line, value) of every str constant of a file that is not a
+    docstring."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            first = node.body[0] if node.body else None
+            if (isinstance(first, ast.Expr)
+                    and isinstance(first.value, ast.Constant)):
+                docs.add(id(first.value))
+    return [(n.lineno, n.value) for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_string_names_a_jax_package_module(path):
+    """A cordapp name or a knob's module given as "corda_tpu.<x>" would
+    load the JAX package, and jax, into a port process by import_module;
+    the import check above cannot see a string."""
+    bad = [(line, v) for line, v in _string_constants(path)
+           if _REFERENCE_MODULE.search(v)]
+    assert not bad, bad
+
+
+def _cordapp_names(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.keyword) and node.arg == "cordapps":
+            names += [c.value for c in ast.walk(node.value)
+                      if isinstance(c, ast.Constant)]
+    return names
+
+
+def test_harness_cordapps_are_the_ports():
+    names = _cordapp_names(os.path.join(REPO, "corda_tpu_torch", "tools",
+                                        "loadtest.py"))
+    assert set(names) == {"corda_tpu_torch.testing.dummies",
+                          "corda_tpu_torch.tools.loadgen"}
+    from corda_tpu_torch.autotune import space
+
+    for knob in space.KNOBS.values():
+        if knob.target.startswith("env:"):
+            assert knob.target.split(":")[2].startswith("corda_tpu_torch.")
+
+
+def _sha256(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def test_port_clis_leave_the_reference_trajectory_unchanged(tmp_path):
+    store = os.path.join(REPO, "artifacts", "TRAJECTORY.jsonl")
+    before = _sha256(store)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("CORDA_TPU_TRAJECTORY", None)
+    verdict = tmp_path / "verdict.json"
+    runs = [
+        ["corda_tpu_torch.tools.perfdoctor",
+         os.path.join("artifacts", "BENCH_r05_local_e.json")],
+        ["corda_tpu_torch.tools.perfdoctor", "--gate"],
+        ["corda_tpu_torch.tools.perfdoctor", "--backfill", "artifacts",
+         "--trajectory", str(tmp_path / "T.jsonl")],
+        ["corda_tpu_torch.tools.autotune", "--validate"],
+        ["corda_tpu_torch.tools.autotune",
+         os.path.join("artifacts", "INGEST_r15_local.json"), "--mock",
+         "monotone", "--budget", "2", "--seed", "3",
+         "--trajectory", str(tmp_path / "T.jsonl"),
+         "--out", str(verdict)],
+    ]
+    for argv in runs:
+        proc = subprocess.run([sys.executable, "-m", *argv], env=env,
+                              cwd=REPO, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode == 0, (argv, proc.stderr[-2000:])
+    assert _sha256(store) == before
+    assert json.loads(verdict.read_text())["decision_sequence"]
 
 
 _PROBE = r"""
@@ -259,6 +364,11 @@ with tempfile.TemporaryDirectory() as tmp:
                                 deadline_ms=20_000.0, device_min_sigs=0)
         assert fed.verify_batch(jobs).tolist() == want
         assert fed.device_batches == 1 and fed.fallbacks == 0
+from corda_tpu_torch.tools import autotune, loadtest, perfdoctor
+from corda_tpu_torch.autotune import space
+assert space.validate_registry() == []
+assert loadtest.run_loadtest(n_tx=2, notary="validating",
+                             verifier="cpu").tx_committed == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "corda_tpu"))
 assert not bad, bad

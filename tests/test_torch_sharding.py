@@ -32,7 +32,6 @@ from corda_tpu_torch.contracts.structures import StateRef
 from corda_tpu_torch.crypto.hashes import SecureHash
 from corda_tpu_torch.crypto.keys import KeyPair
 from corda_tpu_torch.crypto.party import Party
-from corda_tpu_torch.flows.api import FlowLogic, register_flow
 from corda_tpu_torch.node.config import NodeConfig, ShardConfig
 from corda_tpu_torch.node.node import Node
 from corda_tpu_torch.node.services.api import UniquenessConflict, UniquenessException
@@ -61,6 +60,9 @@ from corda_tpu_torch.node.services.sharding import (
     split_by_shard,
 )
 from corda_tpu_torch.serialization.codec import deserialize, serialize
+# The reference chaos harness's client flow: notarise under the product
+# retry policy, so a killed leader's availability window is ridden out.
+from corda_tpu_torch.tools.loadtest import RetryingNotariseFlow
 
 
 def _ref(tag: str, index: int = 0) -> StateRef:
@@ -856,24 +858,6 @@ def _audit(stxs, committed_by_group, shards):
             assert shard_of(ref, shards) == g
             seen[key] = tx
     assert seen == want
-
-
-@register_flow
-class RetryingNotariseFlow(FlowLogic):
-    """The reference chaos harness's client flow
-    (corda_tpu/tools/loadtest.py:252): notarise under the product retry
-    policy, so a killed leader's availability window is ridden out."""
-
-    def __init__(self, stx, deadline_s: float = 60.0):
-        self.stx = stx
-        self.deadline_s = deadline_s
-
-    def call(self):
-        from corda_tpu_torch.flows.notary import notarise_with_retry
-
-        sig = yield from notarise_with_retry(
-            self, self.stx, deadline_s=self.deadline_s)
-        return sig
 
 
 @pytest.mark.slow

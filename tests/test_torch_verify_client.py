@@ -53,11 +53,16 @@ def port_server(tmp_path_factory):
 
 
 def test_defaults_equal_jax_and_come_from_the_constructor(monkeypatch):
+    """The constructor's crossover wins; without one both packages read
+    CORDA_TPU_SIDECAR_MIN_SIGS (the autotuner's env knob), else 16."""
     assert client.SIDECAR_MIN_SIGS_DEFAULT == jclient.SIDECAR_MIN_SIGS_DEFAULT
-    monkeypatch.setenv("CORDA_TPU_SIDECAR_MIN_SIGS", "3")
+    monkeypatch.delenv("CORDA_TPU_SIDECAR_MIN_SIGS", raising=False)
     assert client.SidecarVerifier("/tmp/none.sock").device_min_sigs == 16
+    monkeypatch.setenv("CORDA_TPU_SIDECAR_MIN_SIGS", "3")
+    assert client.SidecarVerifier("/tmp/none.sock").device_min_sigs == \
+        jclient.SidecarVerifier("/tmp/none.sock").device_min_sigs == 3
     assert client.SidecarVerifier("/tmp/none.sock",
-                                  device_min_sigs=3).device_min_sigs == 3
+                                  device_min_sigs=5).device_min_sigs == 5
     assert client.SidecarVerifier.name == jclient.SidecarVerifier.name
 
 
