@@ -1,9 +1,9 @@
 """L1 ledger data model: states, contracts, commands, transactions-for-contract.
 
-The port's copies of ``corda_tpu/contracts/structures.py``,
-``verification.py``, ``dsl.py`` and ``universal.py`` (not exported here,
-as in the JAX package); the JAX package's sandbox and clause modules are
-not ported yet (ROADMAP.md).
+The port's copies of ``corda_tpu/contracts``: ``structures.py``,
+``verification.py`` and ``dsl.py``, with ``universal.py``, ``clauses.py``,
+``sandbox.py`` and ``attachments_loader.py`` as modules of their own (not
+exported here, as in the JAX package).
 """
 
 from .structures import (  # noqa: F401

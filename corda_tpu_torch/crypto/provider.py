@@ -356,6 +356,7 @@ class TorchMeshVerifier(DeviceRoutedVerifier):
         if self._mesh is None:
             from ..ops import sharded
 
+            # lint: allow(no-jit-in-hotpath) lazy one-time constructor: the mesh is built once and memoised on self._mesh; per-batch calls only read the cached object
             self._mesh = sharded.make_mesh(self.n_devices, self._devices)
         return self._mesh
 

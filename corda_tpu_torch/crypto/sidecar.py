@@ -318,6 +318,7 @@ class _Client:
         self.lock = threading.Lock()
 
     def reply(self, payload: bytes) -> None:
+        # lint: allow(no-blocking-under-lock) this per-client lock EXISTS to serialize frames on one socket (executor vs reader thread); nothing else ever contends on it
         with self.lock:
             send_frame(self.conn, payload)
 

@@ -4,8 +4,8 @@ The port's own copies of ``corda_tpu/finance``'s Amount arithmetic, the
 on-ledger asset base, the Cash, CommercialPaper and Commodity contracts
 and the two-party delivery-versus-payment trade flows; the rate types
 (``types``), fixable deals (``fixable_deal``) and the interest-rate swap
-(``irs``) are modules of their own, not exported here, as in the JAX
-package. Obligation is not ported yet (ROADMAP.md).
+(``irs``) and the Obligation contract (``obligation``) are modules of
+their own, not exported here, as in the JAX package.
 """
 
 from .amount import Amount

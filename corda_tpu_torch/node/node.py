@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import logging
 import os
+import queue
 import sys
 import time
 from collections import deque
@@ -277,6 +278,12 @@ class Node:
         # soak keeps exactly one hour of samples, never an unbounded list.
         self.metrics_history: deque[dict] = deque(
             maxlen=self.METRICS_HISTORY_KEEP)
+
+        # This process's kernel launches (ops/kernels.py) as start()'s warm
+        # left them, exported by node_metrics so that a node alone in its
+        # process reports the launches its traffic made; None until a card
+        # verifier has warmed.
+        self.boot_launches: dict | None = None
 
         # -- state machine manager ----------------------------------------
         self.smm = StateMachineManager(
@@ -590,6 +597,9 @@ class Node:
         if getattr(getattr(verifier, "device", None), "type", None) != "cuda":
             return
         verifier.warm()
+        from ..ops import kernels
+
+        self.boot_launches = dict(kernels.LAUNCHES)
 
     def start_flow(self, logic) -> FlowHandle:
         return self.smm.add(logic)
@@ -905,8 +915,10 @@ class Node:
             if thread is not None and thread.is_alive():
                 try:
                     q.put(None, timeout=1.0)  # the executor's shutdown mark
-                except Exception:
-                    pass
+                except queue.Full:
+                    logging.getLogger("corda_tpu_torch.node").warning(
+                        "raft apply queue still full at stop(): the "
+                        "executor's shutdown mark was not queued")
                 thread.join(timeout=5.0)
         if self.scrubber is not None:
             # Before db.close(): the scrubber holds its own connection, but

@@ -25,6 +25,7 @@ for the plain versions); the client splits ``call`` into ``submit`` and
 from __future__ import annotations
 
 import os
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -199,6 +200,7 @@ class NodeRpcOps:
         kernel_backend = last_backend_if_loaded()
         av_stats = (smm.async_verify.stats()
                     if smm.async_verify is not None else None)
+        kmod = sys.modules.get("corda_tpu_torch.ops.kernels")
         return dict(smm.metrics) | {
             "flows_in_flight": smm.in_flight_count,
             "verify_pending_sigs": smm.verify_pending_sigs,
@@ -210,6 +212,14 @@ class NodeRpcOps:
                 smm.verifier, "device_batches", None),
             "verify_host_batches": getattr(
                 smm.verifier, "host_batches", None),
+            # This process's kernel launches (ops/kernels.py), read without
+            # importing the kernel module, and the counts start()'s warm
+            # left (None without a card verifier): their difference is what
+            # traffic launched in a process that holds one node.
+            "kernel_launches": (dict(kmod.LAUNCHES) if kmod is not None
+                                else None),
+            "kernel_launches_at_boot": getattr(self._node, "boot_launches",
+                                               None),
             # Device gate state: False while a degraded device tier
             # re-probes (batches host-route until then), True once it is
             # back, None when no gate was installed (a cpu verifier, or a

@@ -2,10 +2,8 @@
 
 The port's own copies of ``corda_tpu/node/services``: the service API,
 the in-memory services, the notary services, sqlite persistence with its
-integrity frames, the schema and vault observers and the scheduler, with
-the raft and sharding modules cut to what the notary flow and the node
-import; the indexed vault, the network map service and the rest are not
-ported yet (ROADMAP.md).
+integrity frames, the schema and vault observers, the scheduler, the raft
+and sharding notaries, the indexed vault and the network map service.
 """
 
 from .api import (  # noqa: F401

@@ -142,6 +142,7 @@ class SidecarVerifier(DeviceRoutedVerifier):
         good = (list(jobs) if len(good_idx) == len(jobs)
                 else [jobs[i] for i in good_idx])
         t0 = time.perf_counter()
+        # lint: allow(no-blocking-under-lock) _io_lock exists to serialize request/reply framing on the one sidecar socket; callers that must not queue here use their own client instance
         with self._io_lock:
             deadline = time.perf_counter() + self.deadline_s
             try:
@@ -196,6 +197,7 @@ class SidecarVerifier(DeviceRoutedVerifier):
     def warm(self) -> None:
         """Ping the server (a connectivity check: the server owns the
         device and its warm-up)."""
+        # lint: allow(no-blocking-under-lock) same socket-framing serialization lock as verify_batch: the ping must not interleave with an in-flight verify frame
         with self._io_lock:
             try:
                 sock = self._connect_maybe()

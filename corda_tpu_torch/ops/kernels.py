@@ -42,6 +42,7 @@ def _fn(src: str, name: str, nptr: int, nint: int = 1, extra=()):
     key = f"{src}:{name}"
     fn = _FNS.get(key)
     if fn is None:
+        # lint: allow(no-jit-in-hotpath) keyed launcher cache: the library is looked up once per (source, launcher) and memoised in _FNS; per-batch calls read the cache
         fn = getattr(_build.load(src), name)
         fn.argtypes = ([_VP] * nptr + [ctypes.c_int] * nint + list(extra)
                        + [_VP])
@@ -133,6 +134,7 @@ def fe_op_cuda(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.shape != b.shape or a.device != b.device:
         raise ValueError("fe_op: operands differ in shape or device")
     out = torch.empty_like(a)
+    # lint: allow(no-jit-in-hotpath) _build.load is the memoised library cache (a dict lookup once built); fe_op is a check of the field arithmetic off the main path
     fn = _build.load("ed25519_verify.cu").fe_op_launch
     fn.argtypes = [ctypes.c_int, _VP, _VP, _VP, ctypes.c_int, _VP]
     fn.restype = ctypes.c_int

@@ -122,6 +122,17 @@ NOTARY_PATH_MODULES = [
     "tools/loadgen.py", "tools/loadtest.py", "tools/perfdoctor.py",
     "tools/autotune.py", "autotune/__init__.py", "autotune/space.py",
     "autotune/runtime.py", "autotune/controller.py", "testing/history.py",
+    # The last modules: the analyzer, Obligation, the generators, the
+    # expect DSL and the simulation, CrossCash, the explorer, the
+    # visualiser, the card watcher, the small utilities, and the chip
+    # phase's obligation workload.
+    "analysis/__init__.py", "analysis/__main__.py", "analysis/engine.py",
+    "analysis/rules.py", "finance/obligation.py", "testing/generators.py",
+    "testing/expect.py", "testing/simulation.py",
+    "testing/obligation_load.py", "tools/crosscash.py",
+    "tools/explorer.py", "tools/visualiser.py", "tools/tunnel_watch.py",
+    "utils/collections.py", "utils/interpolators.py",
+    "utils/progress_render.py", "utils/service_identity.py",
 ]
 
 

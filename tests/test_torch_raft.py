@@ -50,7 +50,11 @@ from corda_tpu_torch.serialization.codec import deserialize, serialize
 from corda_tpu_torch.testing import faults
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_tcp_node import issue_and_move, pump_until  # noqa: E402
+from test_torch_tcp_node import (  # noqa: E402
+    _package,
+    issue_and_move,
+    pump_until,
+)
 
 PARTY = Party("Client", KeyPair.generate(b"\x01" * 32).public.composite)
 
@@ -352,6 +356,35 @@ def test_single_member_group_commit_and_stamp(tmp_path):
     assert stamp["entries_per_batch"] == 4.0
     assert stamp["role"] == "leader"
     json.dumps(stamp)
+
+
+@pytest.mark.xfail(strict=True, raises=AssertionError, reason=(
+    "ROADMAP.md queue 3: a raft member counts its quorum over the peers it "
+    "has learned from the network map, not over its configured cluster "
+    "(node/services/raft.py _maybe_win / _advance_commit, the same in both "
+    "packages)"))
+@pytest.mark.parametrize("package", ["corda_tpu", "corda_tpu_torch"])
+def test_a_member_that_knows_none_of_its_peers_is_not_elected(tmp_path,
+                                                              package):
+    """The first member of a three-member cluster up, alone in the network
+    map: it must not win an election, since one vote is not a majority of
+    three. Both packages count the majority over the peers learned so far
+    (none here), so the member elects itself and would commit alone, the
+    other two later electing their own leader over the same inputs."""
+    pkg = _package(package)
+    node = pkg.Node(pkg.NodeConfig(
+        name="RaftA", base_dir=tmp_path / "RaftA", port=0,
+        notary="raft-simple", raft_cluster=("RaftA", "RaftB", "RaftC"),
+        network_map=tmp_path / "netmap.json", verifier="cpu")).start()
+    try:
+        deadline = time.monotonic() + 1.5  # several election timeouts
+        while time.monotonic() < deadline:
+            node.run_once(timeout=0.01)
+            assert node.raft_member.role != "leader", (
+                "elected with 1 vote of a configured 3")
+        assert not node.raft_member.peers
+    finally:
+        node.stop()
 
 
 def test_node_metrics_carries_raft_and_transport_stamps(tmp_path):

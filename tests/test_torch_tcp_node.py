@@ -6,6 +6,7 @@ default, ``"torch"``, needs the card) and the test round-robins
 ``run_once()`` as the scheduler. Every wait is bounded by its own timeout.
 """
 
+import json
 import time
 
 import pytest
@@ -819,6 +820,51 @@ def test_warm_runs_before_checkpoint_restore(tmp_path, monkeypatch):
         assert fake.warmed == 1
     finally:
         node.stop()
+
+
+def test_node_metrics_reports_the_launches_left_by_the_boot_warm(
+        tmp_path, monkeypatch):
+    # node_metrics exports this process's kernel launches and the counts
+    # start()'s warm left, so a node alone in its process reports what its
+    # traffic launched; a node that warmed nothing reports no boot counts.
+    from corda_tpu_torch.node.rpc import NodeRpcOps
+    from corda_tpu_torch.ops import kernels
+
+    for k in kernels.LAUNCHES:
+        monkeypatch.setitem(kernels.LAUNCHES, k, 0)
+    fake = _FakeCudaVerifier(fail=False)
+    real_warm = fake.warm
+
+    def warm():
+        real_warm()
+        kernels.LAUNCHES["ed25519_verify"] += 4
+        kernels.LAUNCHES["sha512_challenge"] += 2
+
+    monkeypatch.setattr(fake, "warm", warm)
+    make_verifier = node_module._make_verifier
+    monkeypatch.setattr(node_module, "_make_verifier", lambda kind: fake)
+    node = Node(NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
+                           network_map=tmp_path / "netmap.json"))
+    assert node.boot_launches is None
+    try:
+        node.start()
+        kernels.LAUNCHES["ed25519_verify"] += 1  # one device batch after boot
+        m = NodeRpcOps(node).node_metrics()
+        assert m["kernel_launches_at_boot"] == {
+            "ed25519_verify": 4, "sha512_challenge": 2, "sha256_many": 0,
+            "sha256_pair": 0}
+        assert m["kernel_launches"]["ed25519_verify"] == 5
+        json.dumps(m["kernel_launches"])
+    finally:
+        node.stop()
+    monkeypatch.setattr(node_module, "_make_verifier", make_verifier)
+    cpu = Node(NodeConfig(name="C", base_dir=tmp_path / "C", port=0,
+                          verifier="cpu", network_map=tmp_path / "netmap.json"))
+    try:
+        cpu.start()
+        assert NodeRpcOps(cpu).node_metrics()["kernel_launches_at_boot"] is None
+    finally:
+        cpu.stop()
 
 
 def test_cpu_torch_verifier_has_nothing_to_warm(tmp_path, monkeypatch):
