@@ -26,10 +26,19 @@ Mixed-scheme batches split by ``VerifyJob.scheme``: ed25519 jobs take the
 provider's batched path, ecdsa-p256 jobs verify on the host
 (crypto/fast_ecdsa_p256.py, oracle-exact), unknown schemes reject; the
 answers recombine in input order.
+
+Spans: while the torch profiler collects, every TorchVerifier.verify_batch
+call that takes the device records four spans into ``obs.trace.VERIFY``
+(obs/stages.py PROVIDER_SPANS), under one trace id: provider_verify over
+the whole call, and under it provider_pack, provider_copy_in and
+provider_device_wait. Each also opens a ``record_function`` of its name, so
+the profiler's timeline names the host's time by the same stages. With the
+profiler off nothing is recorded.
 """
 
 from __future__ import annotations
 
+import contextlib
 import random
 import threading
 import time
@@ -38,6 +47,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..obs import trace as _obs
 from . import fast_ed25519, ref_ed25519
 
 
@@ -216,6 +226,37 @@ class DeviceRoutedVerifier(BatchVerifier):
 WARM_SIZES = (513, 1025)
 
 
+class _Trace:
+    """One traced device batch in ``obs.trace.VERIFY``: its trace id, the
+    id of its provider_verify span (its stages' parent), and whether the
+    device answered."""
+
+    __slots__ = ("trace_id", "span_id", "ran")
+
+    def __init__(self):
+        self.trace_id = _obs.new_trace_id()
+        self.span_id = _obs.new_span_id()
+        self.ran = False
+
+
+# The trace of the verify_batch call running on this thread, which its
+# stages below record under; None outside a traced call (profiler off,
+# warm-up, re-probe, the sidecar's pack_device / verify_packed).
+_current = threading.local()
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _range(trace: _Trace | None, name: str):
+    """A ``torch.profiler.record_function`` named after a stage inside a
+    traced call, else a no-op."""
+    if trace is None:
+        return _NO_RANGE
+    import torch
+
+    return torch.profiler.record_function(name)
+
+
 class _Packed:
     """A batch packed for the device: word tensors already on the device,
     the verify function that runs them, and where each lane's answer goes."""
@@ -259,6 +300,33 @@ class TorchVerifier(DeviceRoutedVerifier):
     def kernel_backend(self) -> str:
         return "cuda" if self.device.type == "cuda" else "torch-cpu"
 
+    def verify_batch(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
+        """DeviceRoutedVerifier.verify_batch; while the torch profiler
+        collects, a batch that takes the device also records its
+        provider_verify span, over the whole call, and its three stage
+        spans under it. A host-routed batch, or one with no well-formed
+        job, records nothing."""
+        from torch.autograd import _profiler_enabled
+
+        if (not jobs or self._routes_to_host(len(jobs))
+                or not _profiler_enabled()):
+            return super().verify_batch(jobs)
+        import torch
+
+        trace = _Trace()
+        with torch.profiler.record_function("provider_verify"):
+            t0 = time.time()
+            _current.trace = trace
+            try:
+                out = super().verify_batch(jobs)
+            finally:
+                _current.trace = None
+            t1 = time.time()
+        if trace.ran:
+            _obs.VERIFY.record("provider_verify", t0, t1,
+                               trace_id=trace.trace_id, span_id=trace.span_id)
+        return out
+
     def _verify_ed25519_device(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
         packed = self._pack(jobs)
         if packed is None:
@@ -280,16 +348,32 @@ class TorchVerifier(DeviceRoutedVerifier):
         return self._pack(jobs)
 
     def _pack(self, jobs: Sequence[VerifyJob]) -> _Packed | None:
+        """The well-formed jobs' words on the device, recording
+        provider_pack and provider_copy_in inside a traced call; None when
+        no job is well-formed."""
         from ..ops import ed25519 as ted
 
-        good = [i for i, j in enumerate(jobs)
-                if len(j.pubkey) == 32 and len(j.sig) == 64]
-        if not good:
-            return None
-        verify_fn, arrays, n = ted._precompute_auto(
-            [jobs[i].pubkey for i in good], [jobs[i].message for i in good],
-            [jobs[i].sig for i in good], len(good))
-        tensors = tuple(ted.words_to_tensor(w, self.device) for w in arrays)
+        trace = getattr(_current, "trace", None)
+        with _range(trace, "provider_pack"):
+            t0 = time.time()
+            good = [i for i, j in enumerate(jobs)
+                    if len(j.pubkey) == 32 and len(j.sig) == 64]
+            if not good:
+                return None
+            verify_fn, arrays, n = ted._precompute_auto(
+                [jobs[i].pubkey for i in good],
+                [jobs[i].message for i in good],
+                [jobs[i].sig for i in good], len(good))
+            t1 = time.time()
+        with _range(trace, "provider_copy_in"):
+            tensors = tuple(ted.words_to_tensor(w, self.device)
+                            for w in arrays)
+            t2 = time.time()
+        if trace is not None:
+            _obs.VERIFY.record("provider_pack", t0, t1,
+                               trace_id=trace.trace_id, parent=trace.span_id)
+            _obs.VERIFY.record("provider_copy_in", t1, t2,
+                               trace_id=trace.trace_id, parent=trace.span_id)
         return _Packed(jobs, good, tensors, verify_fn, n)
 
     def verify_packed(self, packed: _Packed) -> np.ndarray:
@@ -301,7 +385,17 @@ class TorchVerifier(DeviceRoutedVerifier):
         return out
 
     def _run(self, packed: _Packed) -> np.ndarray:
-        lanes = packed.verify_fn(*packed.tensors)[:packed.n].cpu().numpy()
+        """Launch a packed batch and wait for its answers, recording
+        provider_device_wait inside a traced call."""
+        trace = getattr(_current, "trace", None)
+        with _range(trace, "provider_device_wait"):
+            t0 = time.time()
+            lanes = packed.verify_fn(*packed.tensors)[:packed.n].cpu().numpy()
+            t1 = time.time()
+        if trace is not None:
+            _obs.VERIFY.record("provider_device_wait", t0, t1,
+                               trace_id=trace.trace_id, parent=trace.span_id)
+            trace.ran = True
         out = np.zeros(len(packed.jobs), bool)
         out[packed.good] = lanes
         return out

@@ -23,7 +23,8 @@ Stdlib-only like the rest of ``obs`` — the analyzer imports this module
 from a bare CLI process.
 
 The port's own copy of ``corda_tpu/obs/stages.py``: the same stage and
-span names, so a breakdown or trace from either package reads the same.
+span names, so a breakdown or trace from either package reads the same,
+and beyond them the port's own ``PROVIDER_SPANS``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ __all__ = [
     "DERIVED_STAGES",
     "STAGES",
     "MARKER_SPANS",
+    "PROVIDER_SPANS",
     "SPAN_NAME_PREFIXES",
     "SPAN_NAMES",
 ]
@@ -92,10 +94,21 @@ STAGES = ("admission_wait", "epoch_wait", "queue_wait", "lane_queue_wait",
 MARKER_SPANS = ("raft_commit", "notary_process", "qos_flush",
                 "shard_handoff", "election")
 
+# The port's own, recorded into obs/trace.py's VERIFY ring by the device
+# verify provider (crypto/provider.py TorchVerifier) while the torch
+# profiler collects, one trace a batch:
+# provider_verify over the whole verify_batch call (its time outside the
+# other three is the dispatch), and under it provider_pack (the host
+# packing), provider_copy_in (the words to the device) and
+# provider_device_wait (the launches and the host blocked on the results).
+# Not breakdown stages: they split a batch, not a transaction.
+PROVIDER_SPANS = ("provider_verify", "provider_pack", "provider_copy_in",
+                  "provider_device_wait")
+
 # Dynamic span families: a recorded name may start with one of these
 # prefixes (the root flow span is f"flow:{FlowClassName}").
 SPAN_NAME_PREFIXES = ("flow:",)
 
 # Every literal name a recording site may pass to SpanRecorder.record().
 SPAN_NAMES = frozenset(BATCH_STAGES) | frozenset(DIRECT_STAGES) \
-    | frozenset(MARKER_SPANS)
+    | frozenset(MARKER_SPANS) | frozenset(PROVIDER_SPANS)

@@ -2,7 +2,10 @@
 
 The port's own copy of ``corda_tpu/obs/trace.py``; the port's verify pump
 (crypto/async_verify.py) records its queue_wait / device_verify /
-sidecar_wait / sidecar_verify batch spans here.
+sidecar_wait / sidecar_verify batch spans here. Beyond the reference, the
+``VERIFY`` recorder is always present: while the torch profiler collects,
+the device verify provider (crypto/provider.py) records each device
+batch's provider_* spans into it, armed or not.
 
 Arming mirrors testing/faults.py exactly: a module-level ``ACTIVE`` recorder
 that every instrumentation point guards with ``if _obs.ACTIVE is not None:``
@@ -43,6 +46,7 @@ import time
 
 __all__ = [
     "ACTIVE",
+    "VERIFY",
     "Span",
     "SpanRecorder",
     "arm",
@@ -186,6 +190,14 @@ class SpanRecorder:
         self._ring.clear()
         self._next = 0
         self._links.clear()
+
+
+# The device verify provider's spans (obs/stages.py PROVIDER_SPANS): four a
+# batch that takes the device while the torch profiler collects, one trace
+# id a batch. Never armed or disarmed, so that a caller that can only start
+# a profiler (a benchmark run) still finds them; at four spans a batch the
+# ring holds the newest 16,384 batches.
+VERIFY = SpanRecorder("", DEFAULT_CAPACITY)
 
 
 # ---------------------------------------------------------------------------

@@ -125,9 +125,20 @@ class TestTreeGate:
         assert node.clean
         assert "except queue.Full:" in (TREE / "node/node.py").read_text()
 
-    def test_reference_analyzer_finds_nothing_in_the_port(self):
+    def test_reference_analyzer_finds_nothing_in_the_port(self, monkeypatch):
         # The JAX package's analyzer, unchanged, over every port file at
-        # its rebased path: the port's tree passes both rule sets.
+        # its rebased path: the port's tree passes both rule sets. Its
+        # span-name rule reads the reference's registry plus exactly the
+        # port's own provider spans.
+        from corda_tpu.analysis import rules as ref_rules
+        from corda_tpu.obs import stages as jstages
+        from corda_tpu_torch.obs import stages
+
+        rule = next(r for r in ref_rules.ALL_RULES
+                    if r.name == "trace-stage-registry")
+        monkeypatch.setattr(rule, "_registry", lambda: (
+            jstages.SPAN_NAMES | frozenset(stages.PROVIDER_SPANS),
+            jstages.SPAN_NAME_PREFIXES))
         live = []
         for path in sorted(TREE.rglob("*.py")):
             rel = path.relative_to(TREE).as_posix()

@@ -28,8 +28,22 @@ from corda_tpu_torch.testing.mock_network import MockNetwork
 
 @pytest.mark.parametrize("name", jstages.__all__)
 def test_registry_equal_jax(name):
-    assert getattr(stages, name) == getattr(jstages, name)
+    # The port's span names are the reference's and its own provider
+    # spans (obs/stages.py PROVIDER_SPANS); every other name is exact.
+    want = getattr(jstages, name)
+    if name == "SPAN_NAMES":
+        want = want | frozenset(stages.PROVIDER_SPANS)
+    assert getattr(stages, name) == want
     assert getattr(collect, name, None) == getattr(jcollect, name, None)
+
+
+def test_provider_spans_are_the_ports_own():
+    """No name of the reference's registry is a provider span."""
+    jax_names = set()
+    for name in jstages.__all__:
+        jax_names |= set(getattr(jstages, name))
+    assert not set(stages.PROVIDER_SPANS) & jax_names
+    assert not hasattr(jstages, "PROVIDER_SPANS")
 
 
 def _synthetic(seed: int) -> list[dict]:
