@@ -27,6 +27,15 @@ provider's batched path, ecdsa-p256 jobs verify on the host
 (crypto/fast_ecdsa_p256.py, oracle-exact), unknown schemes reject; the
 answers recombine in input order.
 
+Packing: a TorchVerifier device batch of ed25519 jobs is packed by one
+native pass over the job objects (native/_cverify.c ``pack_jobs``), which
+applies the ``good`` filter and writes the well-formed jobs' words into a
+host buffer kept per thread (pinned on a card), copied to the device once.
+A batch the pass does not take (another scheme among its jobs; a field
+that is not bytes, bytearray or memoryview; a message that is not 32
+bytes, hashed on the host) takes the scheme split and is packed from
+lists as before. ``PACKS`` counts the packed batches by path.
+
 Spans: while the torch profiler collects, every TorchVerifier.verify_batch
 call that takes the device records four spans into ``obs.trace.VERIFY``
 (obs/stages.py PROVIDER_SPANS), under one trace id: provider_verify over
@@ -257,9 +266,16 @@ def _range(trace: _Trace | None, name: str):
     return torch.profiler.record_function(name)
 
 
+# Batches packed for a TorchVerifier's device path, by the path that packed
+# them: the native pass over the job objects, or the lists (mixed schemes,
+# the host-hash path, fields that are not bytes, no native core).
+PACKS = {"single_pass": 0, "fallback": 0}
+
+
 class _Packed:
     """A batch packed for the device: word tensors already on the device,
-    the verify function that runs them, and where each lane's answer goes."""
+    the verify function that runs them, and where each lane's answer goes
+    (``good``: lane k answers job ``good[k]``)."""
 
     __slots__ = ("jobs", "good", "tensors", "verify_fn", "n")
 
@@ -295,13 +311,19 @@ class TorchVerifier(DeviceRoutedVerifier):
         super().__init__(shadow_rate=shadow_rate, rng=rng,
                          device_min_sigs=device_min_sigs)
         self.device = require_cuda(device)
+        # Each thread's host buffer for the native pass (``words``: int32,
+        # 32 words a lane, pinned on a card), grown to the largest batch
+        # the thread has packed: the sidecar packs on one thread while its
+        # executor runs the batch before on another.
+        self._host = threading.local()
 
     @property
     def kernel_backend(self) -> str:
         return "cuda" if self.device.type == "cuda" else "torch-cpu"
 
     def verify_batch(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
-        """DeviceRoutedVerifier.verify_batch; while the torch profiler
+        """DeviceRoutedVerifier.verify_batch, the device route packed by
+        the native pass where it takes the batch; while the torch profiler
         collects, a batch that takes the device also records its
         provider_verify span, over the whole call, and its three stage
         spans under it. A host-routed batch, or one with no well-formed
@@ -310,7 +332,7 @@ class TorchVerifier(DeviceRoutedVerifier):
 
         if (not jobs or self._routes_to_host(len(jobs))
                 or not _profiler_enabled()):
-            return super().verify_batch(jobs)
+            return self._verify_routed(jobs)
         import torch
 
         trace = _Trace()
@@ -318,7 +340,7 @@ class TorchVerifier(DeviceRoutedVerifier):
             t0 = time.time()
             _current.trace = trace
             try:
-                out = super().verify_batch(jobs)
+                out = self._verify_routed(jobs)
             finally:
                 _current.trace = None
             t1 = time.time()
@@ -327,8 +349,32 @@ class TorchVerifier(DeviceRoutedVerifier):
                                trace_id=trace.trace_id, span_id=trace.span_id)
         return out
 
+    def _verify_routed(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
+        """The routing, counters, answers and shadow draws of
+        DeviceRoutedVerifier.verify_batch, with the ``good`` filter and the
+        pack of an all-ed25519 batch done by one native pass. A batch the
+        pass does not take goes through DeviceRoutedVerifier's path
+        unchanged: the scheme split, its ed25519 jobs packed from lists."""
+        if not jobs or self._routes_to_host(len(jobs)):
+            return super().verify_batch(jobs)
+        trace = getattr(_current, "trace", None)
+        with _range(trace, "provider_pack"):
+            t0 = time.time()
+            found = self._single_pass(jobs)
+            t1 = time.time()
+        if found is None:
+            return super().verify_batch(jobs)
+        self.device_batches += 1
+        packed = self._ship(jobs, found, trace, t0, t1)
+        out = (np.zeros(len(jobs), bool) if packed is None
+               else self._run(packed))
+        _shadow_check(jobs, out, self.shadow_rate, self._rng)
+        return out
+
     def _verify_ed25519_device(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
-        packed = self._pack(jobs)
+        """The ed25519 jobs of a batch the pass did not take (and the
+        re-probe's), packed from lists."""
+        packed = self._pack_lists(jobs)
         if packed is None:
             return np.zeros(len(jobs), bool)
         return self._run(packed)
@@ -340,19 +386,78 @@ class TorchVerifier(DeviceRoutedVerifier):
         is well-formed); the caller then calls verify_batch, which routes
         the same way. Otherwise packs the well-formed jobs into word tensors
         on the device and returns a handle for :meth:`verify_packed`. The
-        sidecar packs batch N+1 here while batch N runs."""
+        sidecar packs batch N+1 here while batch N runs: the words are on
+        the device before this returns, so the next pack may reuse the
+        host buffer."""
         jobs = list(jobs)
-        if (not jobs or self._routes_to_host(len(jobs))
-                or any(j.scheme != "ed25519" for j in jobs)):
+        if not jobs or self._routes_to_host(len(jobs)):
             return None
         return self._pack(jobs)
 
-    def _pack(self, jobs: Sequence[VerifyJob]) -> _Packed | None:
-        """The well-formed jobs' words on the device, recording
-        provider_pack and provider_copy_in inside a traced call; None when
-        no job is well-formed."""
+    def _single_pass(self, jobs: Sequence[VerifyJob]):
+        """Runs the native pass over ``jobs`` into this thread's host
+        buffer, growing it first if the batch is larger than any before:
+        (the well-formed lanes it wrote, the positions of the malformed
+        jobs or None when there are none); None when there is no native
+        core or the pass does not take the batch."""
+        from .. import native
+
+        core = native.load_cverify()
+        if core is None:
+            return None
+        host = self._host
+        words = getattr(host, "words", None)
+        if words is None or words.numel() < 32 * len(jobs):
+            import torch
+
+            words = torch.empty(32 * len(jobs), dtype=torch.int32,
+                                pin_memory=self.device.type == "cuda")
+            host.words, host.view = words, words.numpy()
+        found = core.pack_jobs(jobs, host.view)
+        if found is None or found[1] is None:
+            return found
+        return found[0], np.frombuffer(found[1], np.int64)
+
+    def _ship(self, jobs, found, trace=None, t0: float = 0.0,
+              t1: float = 0.0) -> _Packed | None:
+        """The pass's lanes on the device in one copy from this thread's
+        host buffer, complete when this returns; records provider_pack
+        (``t0``–``t1``) and provider_copy_in inside a traced call. None
+        when no lane is well-formed."""
         from ..ops import ed25519 as ted
 
+        PACKS["single_pass"] += 1
+        n, held = found
+        if not n:
+            return None
+        with _range(trace, "provider_copy_in"):
+            host = self._host.words[:32 * n].view(4, 8, n)
+            tensors = host.to(self.device, copy=True).unbind()
+            t2 = time.time()
+        self._record_pack(trace, t0, t1, t2)
+        good = (range(len(jobs)) if held is None
+                else np.delete(np.arange(len(jobs)), held))
+        return _Packed(jobs, good, tensors, ted.verify_arrays_hashed, n)
+
+    def _pack(self, jobs: Sequence[VerifyJob]) -> _Packed | None:
+        """The well-formed jobs of an untraced batch on the device
+        (``pack_device``, ``warm``): by the native pass where it takes the
+        batch, else from lists; None when a job is not ed25519 or none is
+        well-formed."""
+        found = self._single_pass(jobs)
+        if found is not None:
+            return self._ship(jobs, found)
+        if any(j.scheme != "ed25519" for j in jobs):
+            return None
+        return self._pack_lists(jobs)
+
+    def _pack_lists(self, jobs: Sequence[VerifyJob]) -> _Packed | None:
+        """The well-formed jobs of an ed25519 batch on the device, packed
+        from lists; records provider_pack and provider_copy_in inside a
+        traced call. None when no job is well-formed."""
+        from ..ops import ed25519 as ted
+
+        PACKS["fallback"] += 1
         trace = getattr(_current, "trace", None)
         with _range(trace, "provider_pack"):
             t0 = time.time()
@@ -369,12 +474,16 @@ class TorchVerifier(DeviceRoutedVerifier):
             tensors = tuple(ted.words_to_tensor(w, self.device)
                             for w in arrays)
             t2 = time.time()
+        self._record_pack(trace, t0, t1, t2)
+        return _Packed(jobs, good, tensors, verify_fn, n)
+
+    @staticmethod
+    def _record_pack(trace, t0: float, t1: float, t2: float) -> None:
         if trace is not None:
             _obs.VERIFY.record("provider_pack", t0, t1,
                                trace_id=trace.trace_id, parent=trace.span_id)
             _obs.VERIFY.record("provider_copy_in", t1, t2,
                                trace_id=trace.trace_id, parent=trace.span_id)
-        return _Packed(jobs, good, tensors, verify_fn, n)
 
     def verify_packed(self, packed: _Packed) -> np.ndarray:
         """Run a handle from :meth:`pack_device` -> bool[len(jobs)]; counts
@@ -396,6 +505,8 @@ class TorchVerifier(DeviceRoutedVerifier):
             _obs.VERIFY.record("provider_device_wait", t0, t1,
                                trace_id=trace.trace_id, parent=trace.span_id)
             trace.ran = True
+        if packed.n == len(packed.jobs):
+            return lanes
         out = np.zeros(len(packed.jobs), bool)
         out[packed.good] = lanes
         return out
@@ -407,10 +518,9 @@ class TorchVerifier(DeviceRoutedVerifier):
         if self.device.type != "cuda":
             return
         for n in WARM_SIZES:
-            self._verify_ed25519_device(
-                [VerifyJob(bytes(32), bytes(32), bytes(64))] * n)
-            self._verify_ed25519_device(
-                [VerifyJob(bytes(32), b"", bytes(64))])
+            self._run(self._pack(
+                [VerifyJob(bytes(32), bytes(32), bytes(64))] * n))
+            self._run(self._pack([VerifyJob(bytes(32), b"", bytes(64))]))
 
 
 class TorchMeshVerifier(DeviceRoutedVerifier):

@@ -2,7 +2,8 @@
 
 Counterpart of ``corda_tpu/native/__init__.py`` for ``_cverify.c`` (batched
 libcrypto verify and signing and the device-hash word packer, GIL
-released), ``_ccodec.c`` (the canonical codec's decode/encode core,
+released, and ``pack_jobs``, the device provider's one pass from VerifyJob
+objects to words), ``_ccodec.c`` (the canonical codec's decode/encode core,
 wired in by serialization/codec.py) and ``_ccommit.c`` (batched CRC32C of
 the commit path's integrity frames, wired in by
 node/services/integrity.py). Each source compiles with ``gcc``

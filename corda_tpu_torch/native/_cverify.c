@@ -14,6 +14,11 @@
  * the (8, bucket) uint32 word arrays that ops/ed25519.py's numpy packer
  * writes, byte for byte, with the same ValueErrors in the same order.
  *
+ * pack_jobs is the same packer fed from the job objects themselves: one
+ * pass over a list of ed25519 VerifyJob reads each job's fields, applies
+ * the `good` filter, and writes the well-formed jobs' words into a
+ * caller's buffer (crypto/provider.py, TorchVerifier).
+ *
  * libcrypto is declared extern (no OpenSSL headers needed) and the loader
  * links the installed libcrypto shared object directly. The symbols used
  * are in OpenSSL 1.1.1+'s stable ABI.
@@ -368,6 +373,215 @@ done:
     return result;
 }
 
+/* pack_jobs(jobs, out) -> (n_good, held), or None.
+ *
+ * One pass over a sequence of ed25519 VerifyJob under the GIL. A job is
+ * well formed when its pubkey is 32 bytes and, then, its sig 64 (the
+ * provider's `good` filter); the k-th well-formed one's A, R = sig[:32],
+ * S = sig[32:] and M words go to lane k of the (4, 8, n_good) int32 block
+ * that the pass leaves at the front of `out`, word-major as pack_words
+ * writes each (8, n_good) array. `out` is any writable, 4-byte-aligned
+ * buffer of at least 128 bytes a job; the pass writes at a stride of
+ * len(jobs) lanes and closes the rows up once it knows n_good.
+ *
+ * held is None when every job was well formed; else the int64 positions
+ * of the malformed ones (which reject), ascending. A malformed job's
+ * fields past the one that rejected it are never read.
+ *
+ * None means the batch is not for this pass, and the caller packs it from
+ * lists: a job's scheme is not "ed25519" (compared as ==, the interned
+ * literal first), a field read is not exact bytes, a bytearray or a 1-D
+ * memoryview of single bytes (or reading it raised), or a well-formed
+ * job's message is not 32 bytes (the host-hash path). */
+static PyObject *s_scheme, *s_pubkey, *s_message, *s_sig, *s_ed25519;
+
+typedef struct {
+    const unsigned char *p;
+    Py_ssize_t len;
+    Py_buffer view;
+    int has_view;
+} field_t;
+
+/* A job's field as bytes, or -1 (no exception set) when it is not a type
+ * whose len() is its byte count. A bytearray or memoryview is held by an
+ * exported buffer, which no getter run later in the pass can resize. */
+static int field_get(PyObject *o, field_t *f) {
+    f->has_view = 0;
+    if (PyBytes_CheckExact(o)) {
+        f->p = (const unsigned char *)PyBytes_AS_STRING(o);
+        f->len = PyBytes_GET_SIZE(o);
+        return 0;
+    }
+    if (!PyByteArray_CheckExact(o) && !PyMemoryView_Check(o))
+        return -1;
+    if (PyObject_GetBuffer(o, &f->view, PyBUF_FULL_RO) != 0) {
+        PyErr_Clear();
+        return -1;
+    }
+    f->has_view = 1;
+    if (f->view.ndim != 1 || f->view.itemsize != 1
+        || !PyBuffer_IsContiguous(&f->view, 'C'))
+        return -1;
+    f->p = f->view.buf;
+    f->len = f->view.len;
+    return 0;
+}
+
+static void field_release(field_t *f) {
+    if (f->has_view)
+        PyBuffer_Release(&f->view);
+    f->has_view = 0;
+}
+
+/* The job's attribute `name` read as a field: 0, or -1 (nothing set). */
+static int job_field(PyObject *job, PyObject *name, PyObject **attr,
+                     field_t *f) {
+    *attr = PyObject_GetAttr(job, name);
+    if (*attr == NULL) {
+        PyErr_Clear();
+        return -1;
+    }
+    return field_get(*attr, f);
+}
+
+/* 1 when the job's scheme is "ed25519", 0 when not or reading it raised
+ * (nothing set). */
+static int is_ed25519(PyObject *job) {
+    PyObject *scheme = PyObject_GetAttr(job, s_scheme);
+    if (scheme == NULL) {
+        PyErr_Clear();
+        return 0;
+    }
+    int eq = scheme == s_ed25519
+                 ? 1 : PyObject_RichCompareBool(scheme, s_ed25519, Py_EQ);
+    Py_DECREF(scheme);
+    if (eq < 0)
+        PyErr_Clear();
+    return eq == 1;
+}
+
+static inline void put_words(uint32_t *dst, Py_ssize_t stride,
+                             const unsigned char *e) {
+    for (int w = 0; w < 8; w++)
+        dst[w * stride] = (uint32_t)e[4 * w]
+                          | ((uint32_t)e[4 * w + 1] << 8)
+                          | ((uint32_t)e[4 * w + 2] << 16)
+                          | ((uint32_t)e[4 * w + 3] << 24);
+}
+
+/* One job: 1 when its words went to `lane` (rows `stride` words apart),
+ * 0 when it is malformed, -1 (nothing set) to refuse the batch. */
+static int pack_one(PyObject *job, uint32_t *lane, Py_ssize_t stride) {
+    if (!is_ed25519(job))
+        return -1;
+    PyObject *pk_o = NULL, *sig_o = NULL, *msg_o = NULL;
+    field_t pk, sig, msg; /* only has_view needs a value up front */
+    pk.has_view = sig.has_view = msg.has_view = 0;
+    int rc = -1;
+    if (job_field(job, s_pubkey, &pk_o, &pk) != 0)
+        goto out;
+    if (pk.len != 32) {
+        rc = 0;
+        goto out;
+    }
+    if (job_field(job, s_sig, &sig_o, &sig) != 0)
+        goto out;
+    if (sig.len != 64) {
+        rc = 0;
+        goto out;
+    }
+    if (job_field(job, s_message, &msg_o, &msg) != 0 || msg.len != 32)
+        goto out;
+    put_words(lane, stride, pk.p);
+    put_words(lane + 8 * stride, stride, sig.p);
+    put_words(lane + 16 * stride, stride, sig.p + 32);
+    put_words(lane + 24 * stride, stride, msg.p);
+    rc = 1;
+out:
+    field_release(&msg);
+    field_release(&sig);
+    field_release(&pk);
+    Py_XDECREF(msg_o);
+    Py_XDECREF(sig_o);
+    Py_XDECREF(pk_o);
+    return rc;
+}
+
+static PyObject *pack_jobs(PyObject *self, PyObject *args) {
+    PyObject *jobs, *out_obj;
+    if (!PyArg_ParseTuple(args, "OO", &jobs, &out_obj))
+        return NULL;
+    PyObject *seq = PySequence_Fast(jobs, "jobs must be a sequence");
+    if (seq == NULL)
+        return NULL;
+    Py_buffer out;
+    if (PyObject_GetBuffer(out_obj, &out, PyBUF_WRITABLE) != 0) {
+        Py_DECREF(seq);
+        return NULL;
+    }
+    PyObject *result = NULL;
+    int64_t *held = NULL;
+    Py_ssize_t n_held = 0, cap_held = 0, n_good = 0;
+    Py_ssize_t n = PySequence_Fast_GET_SIZE(seq);
+    uint32_t *words = (uint32_t *)out.buf;
+    if (out.len / 128 < n || (n > 0 && ((uintptr_t)out.buf & 3) != 0)) {
+        PyErr_SetString(PyExc_ValueError,
+                        "out must be 4-byte aligned and hold 128 bytes a job");
+        goto done;
+    }
+    for (Py_ssize_t i = 0; i < n; i++) {
+        /* A field's getter may run Python code that edits the list: hold
+         * the job while it is read, and refuse a list whose length moved. */
+        if (PySequence_Fast_GET_SIZE(seq) != n)
+            goto refuse;
+        PyObject *job = PySequence_Fast_GET_ITEM(seq, i);
+        Py_INCREF(job);
+        int packed = pack_one(job, words + n_good, n);
+        Py_DECREF(job);
+        if (packed < 0)
+            goto refuse;
+        if (packed) {
+            n_good++;
+            continue;
+        }
+        if (n_held == cap_held) {
+            Py_ssize_t cap = cap_held ? 2 * cap_held : 16;
+            int64_t *h = PyMem_Realloc(held, (size_t)cap * sizeof(int64_t));
+            if (h == NULL) {
+                PyErr_NoMemory();
+                goto done;
+            }
+            held = h;
+            cap_held = cap;
+        }
+        held[n_held++] = (int64_t)i;
+    }
+    /* Close the 32 rows up from a stride of n lanes to one of n_good. */
+    if (n_good < n) {
+        for (int row = 1; row < 32; row++)
+            memmove(words + row * n_good, words + row * n,
+                    (size_t)n_good * sizeof(uint32_t));
+    }
+    if (n_held == 0) {
+        result = Py_BuildValue("nO", n_good, Py_None);
+    } else {
+        PyObject *h = PyBytes_FromStringAndSize((const char *)held,
+                                                n_held * sizeof(int64_t));
+        if (h != NULL)
+            result = Py_BuildValue("nN", n_good, h);
+    }
+    goto done;
+
+refuse:
+    result = Py_NewRef(Py_None);
+
+done:
+    PyMem_Free(held);
+    PyBuffer_Release(&out);
+    Py_DECREF(seq);
+    return result;
+}
+
 /* sign_many(seeds, msgs) -> bytes (64 bytes of signature per job).
  *
  * The INGEST mirror of verify_many: columnar layout (seeds and msgs are
@@ -499,6 +713,10 @@ static PyMethodDef methods[] = {
      "pack_words(pks, msgs, sigs, bucket) -> (a, r, s, m) raw (8, bucket) "
      "uint32 word arrays for the device-hash verify path; GIL released "
      "during the fill."},
+    {"pack_jobs", pack_jobs, METH_VARARGS,
+     "pack_jobs(jobs, out) -> (n_good, held) or None: one pass over "
+     "ed25519 VerifyJob objects writing the well-formed jobs' (4, 8, "
+     "n_good) words into out; None when the batch is not for it."},
     {"sign_many", sign_many, METH_VARARGS,
      "sign_many(seeds, msgs) -> sigs: columnar batch Ed25519 sign via "
      "libcrypto, GIL released; n*32-byte seed and 32-byte-message "
@@ -513,4 +731,14 @@ static struct PyModuleDef module = {
     -1, methods,
 };
 
-PyMODINIT_FUNC PyInit__cverify(void) { return PyModule_Create(&module); }
+PyMODINIT_FUNC PyInit__cverify(void) {
+    s_scheme = PyUnicode_InternFromString("scheme");
+    s_pubkey = PyUnicode_InternFromString("pubkey");
+    s_message = PyUnicode_InternFromString("message");
+    s_sig = PyUnicode_InternFromString("sig");
+    s_ed25519 = PyUnicode_InternFromString("ed25519");
+    if (s_scheme == NULL || s_pubkey == NULL || s_message == NULL
+        || s_sig == NULL || s_ed25519 == NULL)
+        return NULL;
+    return PyModule_Create(&module);
+}

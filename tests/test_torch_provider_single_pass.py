@@ -1,0 +1,488 @@
+"""The device provider's native pass (native/_cverify.c ``pack_jobs``, fed
+by ``TorchVerifier``): one walk over the ed25519 VerifyJob objects that
+applies the ``good`` filter and writes the well-formed jobs' words into a
+per-thread host buffer.
+
+Held against the lists it replaces: the words are the numpy packer's, byte
+for byte; and on ``TorchVerifier("cpu")`` every batch -- mixed schemes,
+malformed keys and signatures, bytearray and memoryview fields, fields the
+pass refuses, host-hashed messages -- gives the answers, device and host
+batch counts and shadow draws that the list path gives. Most cases stand
+a fast kernel in for the plain versions: it reads each lane's words back
+into bytes and asks the oracle-exact host verifier, so a lane given
+another job's words answers wrongly.
+"""
+
+import array
+import queue
+import random
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from corda_tpu_torch import native
+from corda_tpu_torch.crypto import fast_ed25519, provider
+from corda_tpu_torch.crypto import ref_ed25519 as ref
+from corda_tpu_torch.ops import ed25519 as ted
+
+
+@pytest.fixture(scope="module")
+def core():
+    found = native.load_cverify()
+    if found is None:
+        pytest.skip("no gcc, Python headers or libcrypto on this host: "
+                    "there is no pass")
+    return found
+
+
+# Without the native core no batch takes the pass: nothing to compare.
+pytestmark = pytest.mark.usefixtures("core")
+
+_KEYS: dict = {}
+
+
+def _ed(i, msg_len=32, ok=True):
+    """(pubkey, message, sig) of signer ``i``; ``ok`` False tampers the
+    message after signing."""
+    seed = bytes([i % 251 + 1]) * 32
+    msg = (b"m%d" % i).ljust(msg_len, b".")[:msg_len]
+    if seed not in _KEYS:
+        _KEYS[seed] = ref.public_key(seed)
+    sig = ref.sign(seed, msg)
+    if not ok:
+        msg = bytes([msg[0] ^ 1]) + msg[1:]
+    return _KEYS[seed], msg, sig
+
+
+def _p256(ok=True):
+    pytest.importorskip("cryptography")
+    from cryptography.hazmat.primitives import hashes
+    from cryptography.hazmat.primitives.asymmetric import ec
+    from cryptography.hazmat.primitives.serialization import (
+        Encoding, PublicFormat)
+
+    key = ec.derive_private_key(0x4242, ec.SECP256R1())
+    pub = key.public_key().public_bytes(Encoding.X962,
+                                        PublicFormat.UncompressedPoint)
+    msg = b"a p256 blob"
+    sig = key.sign(msg, ec.ECDSA(hashes.SHA256()))
+    return provider.VerifyJob(pub, msg if ok else b"other", sig,
+                              "ecdsa-p256")
+
+
+def _random_jobs(n, seed):
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, (n, 128), np.uint8)
+    return [provider.VerifyJob(r[:32].tobytes(), r[32:64].tobytes(),
+                               r[64:].tobytes()) for r in raw]
+
+
+def _reference_words(jobs):
+    """The numpy packer's (4, 8, n) int32 words of ``jobs``."""
+    arrays, n = ted.precompute_batch_device_numpy(
+        [j.pubkey for j in jobs], [j.message for j in jobs],
+        [j.sig for j in jobs], len(jobs))
+    return np.stack(arrays).view(np.int32)
+
+
+def _bytes_of(words):
+    """(8, n) int32 words -> n little-endian 32-byte strings."""
+    raw = words.contiguous().numpy().astype("<u4").T.copy().tobytes()
+    return [raw[32 * i:32 * i + 32] for i in range(words.shape[1])]
+
+
+class FakeKernel:
+    """Stands in for ``verify_arrays_hashed``: records the words each call
+    gets and answers each lane by verifying the bytes its words spell."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __call__(self, a, r, s, m):
+        self.seen.append(torch.stack([a, r, s, m]).clone())
+        lanes = zip(_bytes_of(a), _bytes_of(r), _bytes_of(s), _bytes_of(m))
+        return torch.tensor([fast_ed25519.verify(pk, msg, rr + ss)
+                             for pk, rr, ss, msg in lanes], dtype=torch.bool)
+
+
+@pytest.fixture
+def kernel(monkeypatch):
+    fake = FakeKernel()
+    monkeypatch.setattr(ted, "verify_arrays_hashed", fake)
+    return fake
+
+
+@pytest.fixture
+def packs(monkeypatch):
+    counts = {"single_pass": 0, "fallback": 0}
+    monkeypatch.setattr(provider, "PACKS", counts)
+    return counts
+
+
+def _verifiers(seed=7, **kw):
+    """(the change, the list path), each with its own ``Random(seed)``:
+    the list path is the same verifier with the pass switched off, so
+    every batch packs from lists."""
+    new = provider.TorchVerifier(device="cpu", rng=random.Random(seed), **kw)
+    old = provider.TorchVerifier(device="cpu", rng=random.Random(seed), **kw)
+    old._single_pass = lambda jobs: None
+    return new, old
+
+
+# -- the pass itself ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 257])
+def test_words_equal_the_numpy_packer(n, core):
+    jobs = _random_jobs(n, n)
+    buf = np.full(32 * n + 5, -1, np.int32)
+    assert core.pack_jobs(jobs, buf) == (n, None)
+    np.testing.assert_array_equal(buf[:32 * n].reshape(4, 8, n),
+                                  _reference_words(jobs))
+
+
+def test_words_of_a_malformed_batch_close_up_to_the_well_formed_lanes(core):
+    jobs = _random_jobs(40, 3)
+    held = set()
+    for i in range(0, 40, 5):
+        j = jobs[i]
+        jobs[i] = provider.VerifyJob(j.pubkey[:31], j.message, j.sig)
+        held.add(i)
+    for i in range(2, 40, 9):
+        j = jobs[i]
+        jobs[i] = provider.VerifyJob(j.pubkey, j.message, j.sig[:63])
+        held.add(i)
+    good = [j for i, j in enumerate(jobs) if i not in held]
+    buf = np.full(32 * 40, -1, np.int32)
+    n_good, positions = core.pack_jobs(jobs, buf)
+    assert n_good == len(good)
+    assert np.frombuffer(positions, np.int64).tolist() == sorted(held)
+    np.testing.assert_array_equal(buf[:32 * n_good].reshape(4, 8, n_good),
+                                  _reference_words(good))
+
+
+def test_bytearray_and_memoryview_fields_pack_as_bytes(core):
+    jobs = _random_jobs(6, 9)
+    views = [provider.VerifyJob(bytearray(j.pubkey), memoryview(j.message),
+                                memoryview(bytearray(j.sig))) for j in jobs]
+    a, b = np.zeros(32 * 6, np.int32), np.zeros(32 * 6, np.int32)
+    assert core.pack_jobs(jobs, a) == core.pack_jobs(views, b)
+    np.testing.assert_array_equal(a, b)
+
+
+def test_a_malformed_jobs_later_fields_are_not_read(core):
+    """A malformed job's fields past the one that rejected it are never
+    read: a short key's signature and message may be anything."""
+    ok = _random_jobs(1, 5)[0]
+    jobs = [provider.VerifyJob(ok.pubkey[:31], None, None), ok,
+            provider.VerifyJob(ok.pubkey, None, ok.sig[:10])]
+    buf = np.zeros(32 * 3, np.int32)
+    n_good, held = core.pack_jobs(jobs, buf)
+    assert (n_good, np.frombuffer(held, np.int64).tolist()) == (1, [0, 2])
+    np.testing.assert_array_equal(buf[:32].reshape(4, 8, 1),
+                                  _reference_words([ok]))
+
+
+def test_a_bytearray_field_cannot_be_resized_while_it_is_read(core):
+    """A later field's getter may run Python code: a bytearray key read
+    before it is held by an exported buffer, so resizing it raises in the
+    getter, and the pass refuses the batch instead of reading freed
+    memory."""
+    ok = _random_jobs(1, 6)[0]
+    key = bytearray(ok.pubkey)
+    resized = []
+
+    class Grows:
+        scheme, pubkey, message = "ed25519", key, ok.message
+
+        @property
+        def sig(self):
+            try:
+                key.extend(bytes(1 << 20))
+            except BufferError:
+                resized.append(False)
+                raise
+            resized.append(True)
+            return ok.sig
+
+    assert core.pack_jobs([Grows()], np.zeros(32, np.int32)) is None
+    assert resized == [False] and bytes(key) == ok.pubkey
+
+
+def _refused():
+    ok = _random_jobs(1, 11)[0]
+
+    class NoScheme:
+        pubkey, message, sig = ok.pubkey, ok.message, ok.sig
+
+    return {
+        "str_key": provider.VerifyJob("k" * 32, ok.message, ok.sig),
+        "array_key": provider.VerifyJob(array.array("B", ok.pubkey),
+                                        ok.message, ok.sig),
+        "none_message": provider.VerifyJob(ok.pubkey, None, ok.sig),
+        "33_byte_message": provider.VerifyJob(ok.pubkey, ok.message + b"!",
+                                              ok.sig),
+        "strided_view": provider.VerifyJob(ok.pubkey,
+                                           memoryview(ok.message * 2)[::2],
+                                           ok.sig),
+        "wide_view": provider.VerifyJob(memoryview(ok.pubkey).cast("I"),
+                                        ok.message, ok.sig),
+        "no_scheme": NoScheme(),
+        "p256_job": provider.VerifyJob(ok.pubkey, ok.message, ok.sig,
+                                       "ecdsa-p256"),
+        "unknown_scheme": provider.VerifyJob(ok.pubkey, ok.message, ok.sig,
+                                             "rsa"),
+    }
+
+
+REFUSED = ("array_key", "no_scheme", "none_message", "str_key",
+           "strided_view", "wide_view", "33_byte_message", "p256_job",
+           "unknown_scheme")
+
+
+@pytest.mark.parametrize("case", REFUSED)
+def test_the_pass_refuses_a_batch_it_cannot_read_exactly(case, core):
+    jobs = _random_jobs(5, 1) + [_refused()[case]] + _random_jobs(3, 2)
+    assert core.pack_jobs(jobs, np.zeros(32 * 9, np.int32)) is None
+
+
+def test_a_list_edited_by_a_field_getter_is_refused(core):
+    """A getter may run Python code: a list that shrinks under the pass is
+    refused, never read past its end."""
+    jobs = _random_jobs(6, 4)
+
+    class Shrinks:
+        pubkey, message, sig = jobs[0].pubkey, jobs[0].message, jobs[0].sig
+
+        @property
+        def scheme(self):
+            del jobs[3:]
+            return "ed25519"
+
+    jobs.insert(1, Shrinks())
+    assert core.pack_jobs(jobs, np.zeros(32 * 7, np.int32)) is None
+    assert len(jobs) == 3
+
+
+def test_the_buffer_must_hold_the_batch(core):
+    with pytest.raises(ValueError):
+        core.pack_jobs(_random_jobs(3, 1), np.zeros(32 * 2, np.int32))
+    with pytest.raises(BufferError):
+        core.pack_jobs(_random_jobs(1, 1), bytes(128))
+    assert core.pack_jobs([], bytearray()) == (0, None)
+
+
+# -- the verifier: the pass against the lists --------------------------------
+
+
+def _batches():
+    """name -> (jobs, the path the change packs it by, or None when no
+    batch takes the device)."""
+    good = [provider.VerifyJob(*_ed(i, ok=i % 4 != 1)) for i in range(10)]
+    pk, msg, sig = _ed(20)
+    malformed = list(good)
+    malformed[2] = provider.VerifyJob(pk[:31], msg, sig)
+    malformed[5] = provider.VerifyJob(pk, msg, sig[:63])
+    malformed[6] = provider.VerifyJob(bytearray(pk), memoryview(msg), sig)
+    mixed = list(malformed)
+    mixed.insert(3, _p256())
+    mixed.insert(8, _p256(ok=False))
+    mixed.insert(1, provider.VerifyJob(pk, msg, sig, "rsa"))
+    array_key = list(good)
+    array_key[4] = provider.VerifyJob(array.array("B", pk), msg, sig)
+    long_msg = list(good)
+    long_msg[7] = provider.VerifyJob(*_ed(30, msg_len=33))
+    none_good = [provider.VerifyJob(j.pubkey, j.message, j.sig[:40])
+                 for j in good[:5]]
+    mixed_none_good = none_good + [_p256()]
+    few_ed = [_p256(), _p256(False), _p256(), provider.VerifyJob(pk, msg,
+                                                                 sig)]
+    return {
+        "all_good": (good, "single_pass"),
+        "malformed": (malformed, "single_pass"),
+        "mixed": (mixed, "fallback"),
+        "array_field": (array_key, "fallback"),
+        "host_hash": (long_msg, "fallback"),
+        "none_well_formed": (none_good, "single_pass"),
+        "mixed_none_well_formed": (mixed_none_good, "fallback"),
+        "p256_only": ([_p256(), _p256(False), _p256(), _p256()], None),
+        "few_ed25519": (few_ed, None),
+    }
+
+
+BATCHES = ("all_good", "malformed", "mixed", "array_field", "host_hash",
+           "none_well_formed", "mixed_none_well_formed", "p256_only",
+           "few_ed25519")
+
+
+@pytest.mark.parametrize("case", BATCHES)
+def test_answers_counts_and_shadow_draws_equal_the_list_path(
+        case, kernel, packs, monkeypatch):
+    jobs, path = _batches()[case]
+    if case == "host_hash":
+        # Host-hashed words reach verify_arrays (the 4th array is h, not
+        # M): both sides run the plain version there.
+        monkeypatch.setattr(ted, "verify_arrays", ted.verify_arrays_reference)
+    new, old = _verifiers(shadow_rate=0.5, device_min_sigs=4)
+    got = new.verify_batch(jobs)
+    packed_by = dict(packs)
+    seen_new, kernel.seen = kernel.seen, []
+    want = old.verify_batch(jobs)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == bool and len(got) == len(jobs)
+    np.testing.assert_array_equal(got, provider.OracleVerifier()
+                                  .verify_batch(jobs))
+    assert (new.device_batches, new.host_batches) == (
+        old.device_batches, old.host_batches)
+    assert new._rng.getstate() == old._rng.getstate()
+    assert len(seen_new) == len(kernel.seen)
+    for a, b in zip(seen_new, kernel.seen):
+        assert torch.equal(a, b)
+    if path is None:
+        assert new.device_batches == 0 and packed_by == dict.fromkeys(
+            packed_by, 0)
+    else:
+        assert new.device_batches == 1
+        assert packed_by[path] == 1 and sum(packed_by.values()) == 1
+
+
+@pytest.mark.parametrize("case", ["malformed", "mixed"])
+def test_the_plain_versions_answer_a_mixed_batch_alike(case):
+    """No stand-in: the change and the list path through the plain
+    versions, against the oracle."""
+    jobs, _ = _batches()[case]
+    new, old = _verifiers(device_min_sigs=0)
+    want = provider.OracleVerifier().verify_batch(jobs)
+    np.testing.assert_array_equal(new.verify_batch(jobs), want)
+    np.testing.assert_array_equal(old.verify_batch(jobs), want)
+
+
+@pytest.mark.parametrize("case", ["malformed", "mixed"])
+def test_a_shadow_divergence_still_raises(case, monkeypatch):
+    jobs, _ = _batches()[case]
+    monkeypatch.setattr(ted, "verify_arrays_hashed", lambda a, r, s, m:
+                        torch.ones(a.shape[1], dtype=torch.bool))
+    v = provider.TorchVerifier(device="cpu", shadow_rate=1.0,
+                               device_min_sigs=0)
+    with pytest.raises(RuntimeError, match="divergence"):
+        v.verify_batch(jobs)
+
+
+def test_every_batch_counts_by_the_path_that_packed_it(kernel, packs):
+    v = provider.TorchVerifier(device="cpu", device_min_sigs=4)
+    good = [provider.VerifyJob(*_ed(i)) for i in range(6)]
+    v.verify_batch(good)
+    assert packs == {"single_pass": 1, "fallback": 0}
+    v.verify_batch(good[:3])                       # host tier: not packed
+    assert packs == {"single_pass": 1, "fallback": 0}
+    v.verify_batch(good[:5] + [provider.VerifyJob(
+        array.array("B", good[5].pubkey), good[5].message, good[5].sig)])
+    assert packs == {"single_pass": 1, "fallback": 1}
+    packed = v.pack_device(good)                   # the sidecar's split
+    assert packs == {"single_pass": 2, "fallback": 1}
+    assert v.verify_packed(packed).all()
+    assert (v.device_batches, v.host_batches) == (3, 1)
+
+
+@pytest.mark.parametrize("case", ["mixed", "array_field", "host_hash"])
+def test_a_refused_batch_runs_the_pass_once(case, kernel, monkeypatch):
+    """A batch the pass refuses goes to the lists without a second pass
+    over its ed25519 jobs."""
+    jobs, _ = _batches()[case]
+    if case == "host_hash":
+        monkeypatch.setattr(ted, "verify_arrays", ted.verify_arrays_reference)
+    v = provider.TorchVerifier(device="cpu", device_min_sigs=0)
+    passes = []
+    single_pass = v._single_pass
+    v._single_pass = lambda js: passes.append(len(js)) or single_pass(js)
+    v.verify_batch(jobs)
+    assert passes == [len(jobs)]
+
+
+def test_pack_device_refuses_mixed_schemes_without_packing(kernel, packs):
+    v = provider.TorchVerifier(device="cpu", device_min_sigs=0)
+    jobs, _ = _batches()["mixed"]
+    assert v.pack_device(jobs) is None
+    assert packs == {"single_pass": 0, "fallback": 0}
+
+
+# -- the per-thread buffer -----------------------------------------------------
+
+
+def test_the_buffer_grows_to_the_largest_batch_and_is_kept(kernel):
+    v = provider.TorchVerifier(device="cpu", device_min_sigs=0)
+    big = [provider.VerifyJob(*_ed(i)) for i in range(9)]
+    assert v.verify_batch(big[:4]).all()
+    small = v._host.words
+    assert small.numel() == 32 * 4 and not small.is_pinned()
+    assert v.verify_batch(big).all()
+    grown = v._host.words
+    assert grown.numel() == 32 * 9
+    assert v.verify_batch(big[2:5]).all()
+    assert v._host.words is grown
+
+
+def _echo(a, r, s, m):
+    """A stand-in kernel answering each lane with its message's first
+    bit: what a lane answers shows whose words it was given."""
+    return (m[0] & 1).to(torch.bool)
+
+
+def _echo_batch(n, tag):
+    """n jobs of random bytes whose message's first bit is their answer;
+    the answers differ from batch to batch."""
+    jobs = _random_jobs(n, tag)
+    bits = np.random.default_rng(tag + 1000).integers(0, 2, n).astype(bool)
+    jobs = [provider.VerifyJob(j.pubkey, bytes([j.message[0] & 0xFE | int(b)])
+                               + j.message[1:], j.sig)
+            for j, b in zip(jobs, bits)]
+    return jobs, bits
+
+
+def test_a_packed_batch_is_its_own_once_pack_returns(monkeypatch):
+    """The sidecar packs batch N + 1 while batch N runs: a handle must not
+    read the buffer the next pack writes."""
+    monkeypatch.setattr(ted, "verify_arrays_hashed", _echo)
+    v = provider.TorchVerifier(device="cpu", device_min_sigs=0)
+    (a, want_a), (b, want_b) = _echo_batch(50, 1), _echo_batch(50, 2)
+    pa = v.pack_device(a)
+    pb = v.pack_device(b)
+    np.testing.assert_array_equal(v.verify_packed(pa), want_a)
+    np.testing.assert_array_equal(v.verify_packed(pb), want_b)
+
+
+def test_two_threads_pack_and_answer_at_once(monkeypatch):
+    """The sidecar's pattern and two callers side by side: a packer thread
+    hands handles to an executor thread while another thread calls
+    verify_batch; every answer is its own batch's."""
+    monkeypatch.setattr(ted, "verify_arrays_hashed", _echo)
+    v = provider.TorchVerifier(device="cpu", device_min_sigs=0)
+    batches = [_echo_batch(20 + 13 * k, k) for k in range(12)]
+    handles: queue.Queue = queue.Queue()
+    errors = []
+
+    def packer():
+        for jobs, want in batches:
+            handles.put((v.pack_device(jobs), want))
+        handles.put(None)
+
+    def executor():
+        while (item := handles.get(timeout=30)) is not None:
+            packed, want = item
+            if not np.array_equal(v.verify_packed(packed), want):
+                errors.append("executor")
+
+    def caller():
+        for jobs, want in reversed(batches):
+            if not np.array_equal(v.verify_batch(jobs), want):
+                errors.append("caller")
+
+    threads = [threading.Thread(target=f) for f in (packer, executor, caller)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []

@@ -151,9 +151,30 @@ def test_children_lie_inside_the_outer_span_and_do_not_overlap(
 
 
 def test_profiler_sees_the_four_stages(profiled_batch):
+    """The native pass refuses the mixed batch (it takes ed25519 jobs
+    only): its try is a provider_pack range of its own before the list
+    path's, and the spans count it in the call's dispatch."""
     _, _, _, ranges = profiled_batch
     assert sorted(name for name, _, _ in ranges) == sorted(
+        stages.PROVIDER_SPANS + ("provider_pack",))
+
+
+def test_a_batch_the_pass_takes_opens_each_range_once():
+    from corda_tpu_torch import native
+
+    if native.load_cverify() is None:
+        pytest.skip("no native core on this host: no batch takes the pass")
+    jobs = _mixed_jobs()[:8]
+    v = provider.TorchVerifier("cpu", device_min_sigs=0)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out, traces = _recorded(lambda: v.verify_batch(jobs))
+    _one_batch(traces)
+    ranges = _kineto_ranges(prof, set(stages.PROVIDER_SPANS))
+    assert sorted(name for name, _, _ in ranges) == sorted(
         stages.PROVIDER_SPANS)
+    np.testing.assert_array_equal(out,
+                                  provider.CpuVerifier().verify_batch(jobs))
 
 
 def test_a_long_stage_agrees_with_its_profiler_range(profiled_batch):
