@@ -71,7 +71,7 @@ from typing import Sequence
 import numpy as np
 
 from ..obs import telemetry as _tm
-from .provider import TorchMeshVerifier, VerifyJob, make_verifier
+from .provider import PACKS, TorchMeshVerifier, VerifyJob, make_verifier
 
 OP_VERIFY = 1
 OP_STATS = 2
@@ -815,6 +815,9 @@ class SidecarServer:
                                     else None),
                 "packed_batches": self.packed_batches,
                 "pack_s_total": round(self.pack_s_total, 6),
+                # This process's device batches by the path that packed
+                # them (provider.PACKS): the native pass or the lists.
+                "packs": dict(PACKS),
                 # Mesh ownership: the configured width, the proven one, and
                 # the lanes dispatched. The port packs each batch to its
                 # exact size (the kernels take any N), so pad lanes come

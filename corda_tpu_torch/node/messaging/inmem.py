@@ -294,6 +294,9 @@ class InMemoryMessaging(MessagingService):
             # frames_sent_total / firehose requested tx = frames-per-tx,
             # the ingest amortization observable.
             "frames_sent_total": self._sends + self._burst_frames,
+            # The network delivers on its own pump; an endpoint never
+            # blocks waiting for a message (tcp parity).
+            "pump_wait_s": 0.0,
         }
 
     def add_message_handler(

@@ -388,6 +388,10 @@ class TcpMessaging(MessagingService):
         self._redeliveries = 0
         self._poison_drops = 0
         self._stale_resends = 0  # bridge threads; guarded by _stats_lock
+        # Seconds pump() spent blocked on the inbound queue: the wait for
+        # the first message and the coalescing window's waits, so a round's
+        # pump time splits into waiting and work. Node-thread-only.
+        self.pump_wait_s = 0.0
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -581,6 +585,7 @@ class TcpMessaging(MessagingService):
             # firehose's requested tx count this is frames-per-tx — the
             # client-side wire amortization the ingest plane targets.
             "frames_sent_total": ob["appends"] + ob["burst_frames"],
+            "pump_wait_s": round(self.pump_wait_s, 6),
         }
 
     def _ensure_bridge(self, peer: str) -> None:
@@ -904,7 +909,10 @@ class TcpMessaging(MessagingService):
         (blocking) for up to that many seconds from its arrival — each
         round costs a commit/fsync, per-connection ACK frames and (leader)
         an AppendEntries broadcast, and wake-per-message pays all three per
-        message under trickle load."""
+        message under trickle load.
+
+        The seconds spent blocked on the queue (both waits) accumulate in
+        ``pump_wait_s``."""
         self._outbox.flush_retired()  # node thread: the ONE sqlite writer
         n = attempts = 0
         window_end = None
@@ -922,10 +930,14 @@ class TcpMessaging(MessagingService):
                     block = True
             else:
                 block, wait = False, None
+            t_block = time.perf_counter() if block else 0.0
             try:
                 conn, message = self._inbound.get(block=block, timeout=wait)
             except queue.Empty:
                 return n
+            finally:
+                if block:
+                    self.pump_wait_s += time.perf_counter() - t_block
             if attempts == 0 and coalesce > 0:
                 window_end = time.monotonic() + coalesce
             attempts += 1

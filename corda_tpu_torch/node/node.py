@@ -628,8 +628,8 @@ class Node:
             # full idle timeout behind the device.
             wait = min(wait, 0.002)
         stages = self.smm.metrics.setdefault(
-            "round_stage_s", {"lock": 0.0, "pump": 0.0, "raft": 0.0,
-                              "services": 0.0, "verify": 0.0,
+            "round_stage_s", {"lock": 0.0, "pump": 0.0, "pump_wait": 0.0,
+                              "raft": 0.0, "services": 0.0, "verify": 0.0,
                               "verify_drain": 0.0, "verify_submit": 0.0,
                               "checkpoint": 0.0, "commit": 0.0, "rounds": 0})
         # Round profiler (obs/telemetry.py ROUND_PHASES): the always-on
@@ -655,9 +655,14 @@ class Node:
             with self.db.batch():
                 t0 = t()
                 stages["lock"] += t0 - t_pre
+                # The transport's blocked seconds (TcpMessaging), read
+                # around the pump: the part of its stage spent waiting.
+                wait0 = getattr(self.messaging, "pump_wait_s", 0.0)
                 n = self.messaging.pump(timeout=wait, max_messages=512,
                                         coalesce=batch.coalesce_ms / 1e3)
                 t1 = t()
+                pump_wait = (getattr(self.messaging, "pump_wait_s", 0.0)
+                             - wait0)
                 if self.raft_member is not None:
                     self.raft_member.tick()
                 t2 = t()
@@ -715,6 +720,7 @@ class Node:
                 # attribution artifact for the process-boundary throughput
                 # work — exported via node_metrics like every counter.
                 stages["pump"] += t1 - t0
+                stages["pump_wait"] += pump_wait
                 stages["raft"] += (t2 - t1) + (t4 - t3d)
                 stages["services"] += t3 - t2
                 stages["verify"] += (t3d - t3) + (t5 - t4)

@@ -2050,6 +2050,7 @@ class RaftMember:
             "group_commit": self.config.group_commit,
             "group_commits": m["group_commits"],
             "group_commands": m["group_commands"],
+            "solo_commits": m["solo_commits"],
             # Commands committed per sealed log entry (solo entries count 1)
             # — > 1 means group commit actually amortized the burst.
             "entries_per_batch": (round(commands / sealed, 3)

@@ -355,7 +355,15 @@ def test_single_member_group_commit_and_stamp(tmp_path):
     stamp = member.stamp()
     assert stamp["entries_per_batch"] == 4.0
     assert stamp["role"] == "leader"
+    assert stamp["solo_commits"] == 0
     json.dumps(stamp)
+    # A round that seals one command makes a single-command entry.
+    member.submit(cmd(b"s4", b"t4", b"r4"))
+    member.flush_appends()
+    member.quiesce_apply()
+    stamp = member.stamp()
+    assert (stamp["group_commits"], stamp["solo_commits"]) == (1, 1)
+    assert stamp["entries_per_batch"] == 2.5
 
 
 @pytest.mark.xfail(strict=True, raises=AssertionError, reason=(
