@@ -15,6 +15,7 @@ import importlib
 import json
 import random
 import sqlite3
+import struct
 from types import SimpleNamespace
 
 import pytest
@@ -100,6 +101,118 @@ def test_python_fallback_equals_native(monkeypatch):
     native = PORT.integrity.committed_crc_many(pairs)
     monkeypatch.setattr(PORT.integrity, "_ccommit", False)
     assert PORT.integrity.committed_crc_many(pairs) == native
+
+
+def _crc_cases(kind):
+    """(data, crc) inputs of one kind, each fed to both packages' crc32c."""
+    rng = random.Random(0x2020)
+    if kind == "lengths":
+        return [(rng.randbytes(n), 0) for n in range(65)]
+    if kind == "offsets":
+        # memoryviews at every offset 0-7, seeded lengths up to 64 KB.
+        out = []
+        for off in range(8):
+            for n in (rng.randrange(1, 64), rng.randrange(64, 4096),
+                      rng.randrange(4096, 65537)):
+                buf = bytearray(rng.randbytes(off + n))
+                out.append((memoryview(buf)[off:off + n], 0))
+        out.append((memoryview(b"123456789")[0:0], 0))
+        return out
+    # Continuations chained as the row frames chain them: the key's CRC
+    # seeds the payload's (checkpoint_crc, log_crc, reserved_crc).
+    out = []
+    for n in (0, 1, 7, 8, 9, 31, 4317, 16391, 16434):
+        key = rng.randbytes(rng.randrange(0, 40))
+        seed = JAX.integrity.crc32c(key)
+        out.append((rng.randbytes(n), seed))
+        out.append((bytearray(rng.randbytes(n)), JAX.integrity.crc32c(
+            struct.pack("<d", rng.random()), seed)))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["lengths", "offsets", "chained"])
+@pytest.mark.parametrize("path", ["native", "python"])
+def test_crc32c_equals_the_jax_package(monkeypatch, path, kind):
+    if path == "native":
+        assert PORT.integrity._load_ccommit(), "gcc builds _ccommit.c here"
+    else:
+        monkeypatch.setattr(PORT.integrity, "_ccommit", False)
+    before = PORT.integrity.stats()
+    for data, crc in _crc_cases(kind):
+        want = JAX.integrity.crc32c(bytes(data), crc)
+        assert PORT.integrity.crc32c(data, crc) == want, (len(data), crc)
+    after = PORT.integrity.stats()
+    moved = {k: after[k] - before[k]
+             for k in ("crc_bytes_native", "crc_bytes_python")}
+    # Each path counts what it checksummed (a thread left over from an
+    # earlier test may add to it) and the other path counts nothing.
+    other = {"native": "crc_bytes_python", "python": "crc_bytes_native"}
+    assert moved.pop(other[path]) == 0
+    assert moved.popitem()[1] >= sum(len(d) for d, _ in _crc_cases(kind))
+    # The row frames compose from crc32c on either path.
+    rng = random.Random(len(kind))
+    for _ in range(20):
+        blob = rng.randbytes(rng.randrange(0, 20000))
+        rid = rng.randbytes(8).hex()
+        assert PORT.integrity.checkpoint_crc(rid, blob) == \
+            JAX.integrity.checkpoint_crc(rid, blob)
+        assert PORT.integrity.log_crc(7, 3, blob) == \
+            JAX.integrity.log_crc(7, 3, blob)
+        assert PORT.integrity.reserved_crc(blob[:33], blob[33:65], 1.5) == \
+            JAX.integrity.reserved_crc(blob[:33], blob[33:65], 1.5)
+
+
+@pytest.mark.parametrize("writer, reader", [("python", "native"),
+                                            ("native", "python")])
+def test_checkpoint_rows_restore_across_crc_paths(monkeypatch, tmp_path,
+                                                  writer, reader):
+    """A checkpoint row one CRC path wrote verifies and restores through
+    the other: stored databases stay readable, nothing is quarantined."""
+    core = PORT.integrity._load_ccommit()
+    assert core, "gcc builds _ccommit.c here"
+    use = {"native": core, "python": False}
+    rows = [(bytes([k]) * 8, random.Random(k).randbytes(n))
+            for k, n in ((1, 16391), (2, 4317), (3, 0), (4, 21000))]
+    monkeypatch.setattr(PORT.integrity, "_ccommit", use[writer])
+    db = PORT.persistence.NodeDatabase(tmp_path / "node.db")
+    cs = PORT.persistence.DBCheckpointStorage(db)
+    for rid, blob in rows:
+        cs.update_checkpoint(rid, blob)
+    db.close()
+    monkeypatch.setattr(PORT.integrity, "_ccommit", use[reader])
+    quarantined = PORT.integrity.stats()["checkpoints_quarantined"]
+    db = PORT.persistence.NodeDatabase(tmp_path / "node.db")
+    assert PORT.persistence.DBCheckpointStorage(db).items() == rows
+    assert db.conn.execute(
+        "SELECT COUNT(*) FROM quarantine").fetchone() == (0,)
+    db.close()
+    assert PORT.integrity.stats()["checkpoints_quarantined"] == quarantined
+
+
+def test_checkpoint_write_counts_native_crc_bytes(tmp_path):
+    """A 16 KB checkpoint row is checksummed by the native core, counted in
+    crc_bytes_native, and the node's metrics carry both counters."""
+    from corda_tpu_torch.node.config import NodeConfig
+    from corda_tpu_torch.node.node import Node
+    from corda_tpu_torch.node.rpc import NodeRpcOps
+
+    assert PORT.integrity._load_ccommit(), "gcc builds _ccommit.c here"
+    node = Node(NodeConfig(name="N", base_dir=tmp_path / "N", port=0,
+                           verifier="cpu",
+                           network_map=tmp_path / "netmap.json"))
+    try:
+        node.start()
+        rid, blob = b"\x05" * 8, random.Random(5).randbytes(16391)
+        before = NodeRpcOps(node).node_metrics()["durability"]
+        PORT.persistence.DBCheckpointStorage(node.db).update_checkpoint(
+            rid, blob)
+        after = NodeRpcOps(node).node_metrics()["durability"]
+    finally:
+        node.stop()
+    assert after["crc_bytes_native"] - before["crc_bytes_native"] == \
+        len(rid.hex()) + len(blob)
+    assert after["crc_bytes_python"] == before["crc_bytes_python"]
+    json.dumps(after)
 
 
 @pytest.mark.parametrize("seed", [1, 2])
