@@ -2077,7 +2077,7 @@ def phase_resolve(provider, tsha256, kernels, dev, rng, card):
             "launches": launches["sha256_pair"]}
     # Both verify kernels on the wave's 8,192 signatures, as verify_batch
     # packed them.
-    verify_ms = kernel_ms(lambda: packed.verify_fn(*packed.tensors))
+    verify_ms = kernel_ms(lambda: packed.verify_fn(*packed.tensors[0]))
     e2e_card_ms = (t3 - t0) * 1e3
     busy = many["ms"] + pair["ms"] + verify_ms
     log(f"{card} | resolve kernels at the wave's shapes: sha256_many "

@@ -18,23 +18,24 @@ Providers:
                     with optional shadow sampling against the oracle. Small
                     batches, and every batch while the device gate is
                     closed, take the host tier (DeviceRoutedVerifier).
-  TorchMeshVerifier -- the same path over several devices: each batch
-                    split into equal slices, one launch of each kernel a
-                    device (ops/sharded.py).
+  TorchMeshVerifier -- TorchVerifier over several devices: each batch's
+                    lanes cut into equal slices, one launch of each kernel
+                    a device (ops/sharded.py).
 
 Mixed-scheme batches split by ``VerifyJob.scheme``: ed25519 jobs take the
 provider's batched path, ecdsa-p256 jobs verify on the host
 (crypto/fast_ecdsa_p256.py, oracle-exact), unknown schemes reject; the
 answers recombine in input order.
 
-Packing: a TorchVerifier device batch of ed25519 jobs is packed by one
-native pass over the job objects (native/_cverify.c ``pack_jobs``), which
-applies the ``good`` filter and writes the well-formed jobs' words into a
-host buffer kept per thread (pinned on a card), copied to the device once.
-A batch the pass does not take (another scheme among its jobs; a field
-that is not bytes, bytearray or memoryview; a message that is not 32
-bytes, hashed on the host) takes the scheme split and is packed from
-lists as before. ``PACKS`` counts the packed batches by path.
+Packing: a device batch of ed25519 jobs is packed by one native pass over
+the job objects (native/_cverify.c ``pack_jobs``), which applies the
+``good`` filter and writes the well-formed jobs' words into a host buffer
+kept per thread (pinned on a card), copied to each device once. A batch
+the pass does not take packs from lists: an all-ed25519 batch whose data
+the pass cannot read (a field that is not bytes, bytearray or memoryview;
+a message that is not 32 bytes, hashed on the host) whole, a batch that
+mixes schemes after the scheme split. ``PACKS`` counts the packed batches
+by path.
 
 Spans: while the torch profiler collects, every TorchVerifier.verify_batch
 call that takes the device records four spans into ``obs.trace.VERIFY``
@@ -182,8 +183,11 @@ class DeviceRoutedVerifier(BatchVerifier):
     (batches under ``device_min_sigs`` take the host tier), the
     ``device_gate`` (while it is installed and clear, every batch takes the
     host tier: a warm-up in flight, or a degraded device awaiting its
-    re-probe) and the host/device batch counters. Subclasses implement
-    ``_verify_ed25519_device`` (no routing, no counting) and ``warm``."""
+    re-probe) and the host/device batch counters. A device batch is packed
+    whole where the subclass packs (``_pack``, run by its
+    ``verify_packed``); any other batch splits by scheme, its ed25519 jobs
+    routed again and run by ``_verify_ed25519_device`` (no routing, no
+    counting). Subclasses implement that and ``warm``."""
 
     def __init__(self, shadow_rate: float = 0.0,
                  rng: random.Random | None = None,
@@ -207,7 +211,30 @@ class DeviceRoutedVerifier(BatchVerifier):
     def verify_batch(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
         if not jobs:
             return np.zeros(0, bool)
+        if not self._routes_to_host(len(jobs)):
+            packed = self._pack(jobs)
+            if packed is not None:
+                return self.verify_packed(packed)
         return _dispatch_mixed(jobs, self._verify_ed25519)
+
+    def pack_device(self, jobs: Sequence[VerifyJob]):
+        """Host half of a device batch, routed exactly like verify_batch,
+        for a caller that runs it later: the sidecar packs batch N+1 here
+        while batch N runs. Returns a handle for ``verify_packed``, or None
+        when the batch would not take that route (the crossover or the gate
+        says host, the batch mixes schemes, no job is well-formed, or this
+        verifier packs nothing); the caller then calls verify_batch, which
+        routes the same way."""
+        jobs = list(jobs)
+        if not jobs or self._routes_to_host(len(jobs)):
+            return None
+        packed = self._pack(jobs)
+        return packed if packed is not None and packed.n else None
+
+    def _pack(self, jobs: Sequence[VerifyJob]):
+        """A whole device batch packed for ``verify_packed``, or None when
+        it takes the scheme split; here always None."""
+        return None
 
     def _verify_ed25519(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
         if self._routes_to_host(len(jobs)):
@@ -273,18 +300,26 @@ PACKS = {"single_pass": 0, "fallback": 0}
 
 
 class _Packed:
-    """A batch packed for the device: word tensors already on the device,
-    the verify function that runs them, and where each lane's answer goes
-    (``good``: lane k answers job ``good[k]``)."""
+    """A batch packed for the device: each device's four word tensors (one
+    column slice of the lanes a device, in mesh order), the verify function
+    that runs them, where each lane's answer goes (``good``: lane k answers
+    job ``good[k]``), the real lanes ``n`` and the lanes dispatched
+    (``lanes``: ``n`` padded to a multiple of the device count). ``n`` 0:
+    no job is well-formed, nothing is on a device."""
 
-    __slots__ = ("jobs", "good", "tensors", "verify_fn", "n")
+    __slots__ = ("jobs", "good", "tensors", "verify_fn", "n", "lanes")
 
-    def __init__(self, jobs, good, tensors, verify_fn, n):
+    def __init__(self, jobs, good, tensors=(), verify_fn=None, n=0, lanes=0):
         self.jobs = jobs
         self.good = good
         self.tensors = tensors
         self.verify_fn = verify_fn
         self.n = n
+        self.lanes = lanes
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.tensors)
 
 
 class TorchVerifier(DeviceRoutedVerifier):
@@ -295,10 +330,14 @@ class TorchVerifier(DeviceRoutedVerifier):
     results re-verified on the oracle; a mismatch raises RuntimeError.
     device_min_sigs: the size crossover (DEVICE_MIN_SIGS_DEFAULT).
 
-    Batches of 32-byte messages (tx ids) pack their raw words and hash on
-    the device (SHA-512 challenge kernel, then the verify kernel); other
+    A device batch of ed25519 jobs is packed whole: by the native pass
+    where it takes the batch, else from lists. A batch that mixes schemes
+    takes the scheme split after the pass refused it, its ed25519 jobs
+    packed from lists. Batches of 32-byte messages (tx ids) hash on the
+    device (SHA-512 challenge kernel, then the verify kernel); other
     batches hash on the host with hashlib and run the verify kernel only.
-    The batch is packed to its exact size: the kernels take any N.
+    The lanes are the well-formed jobs, padded only to a multiple of the
+    device count (none here): the kernels take any N.
     """
 
     name = "torch"
@@ -310,7 +349,7 @@ class TorchVerifier(DeviceRoutedVerifier):
 
         super().__init__(shadow_rate=shadow_rate, rng=rng,
                          device_min_sigs=device_min_sigs)
-        self.device = require_cuda(device)
+        self._mesh = (require_cuda(device),)
         # Each thread's host buffer for the native pass (``words``: int32,
         # 32 words a lane, pinned on a card), grown to the largest batch
         # the thread has packed: the sidecar packs on one thread while its
@@ -318,12 +357,21 @@ class TorchVerifier(DeviceRoutedVerifier):
         self._host = threading.local()
 
     @property
+    def mesh(self) -> tuple:
+        """The devices, in slice order: here the one device."""
+        return self._mesh
+
+    @property
+    def device(self):
+        """The mesh's first device (its type is every device's)."""
+        return self.mesh[0]
+
+    @property
     def kernel_backend(self) -> str:
         return "cuda" if self.device.type == "cuda" else "torch-cpu"
 
     def verify_batch(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
-        """DeviceRoutedVerifier.verify_batch, the device route packed by
-        the native pass where it takes the batch; while the torch profiler
+        """DeviceRoutedVerifier.verify_batch; while the torch profiler
         collects, a batch that takes the device also records its
         provider_verify span, over the whole call, and its three stage
         spans under it. A host-routed batch, or one with no well-formed
@@ -332,7 +380,7 @@ class TorchVerifier(DeviceRoutedVerifier):
 
         if (not jobs or self._routes_to_host(len(jobs))
                 or not _profiler_enabled()):
-            return self._verify_routed(jobs)
+            return super().verify_batch(jobs)
         import torch
 
         trace = _Trace()
@@ -340,7 +388,7 @@ class TorchVerifier(DeviceRoutedVerifier):
             t0 = time.time()
             _current.trace = trace
             try:
-                out = self._verify_routed(jobs)
+                out = super().verify_batch(jobs)
             finally:
                 _current.trace = None
             t1 = time.time()
@@ -349,113 +397,65 @@ class TorchVerifier(DeviceRoutedVerifier):
                                trace_id=trace.trace_id, span_id=trace.span_id)
         return out
 
-    def _verify_routed(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
-        """The routing, counters, answers and shadow draws of
-        DeviceRoutedVerifier.verify_batch, with the ``good`` filter and the
-        pack of an all-ed25519 batch done by one native pass. A batch the
-        pass does not take goes through DeviceRoutedVerifier's path
-        unchanged: the scheme split, its ed25519 jobs packed from lists."""
-        if not jobs or self._routes_to_host(len(jobs)):
-            return super().verify_batch(jobs)
+    def _pack(self, jobs: Sequence[VerifyJob]) -> _Packed | None:
+        """The whole batch on the devices: by the native pass where it
+        takes the batch, else from lists when every job is ed25519. None
+        for a batch that mixes schemes: the split packs its ed25519 jobs
+        from lists, without a second pass."""
+        packed = self._single_pass(jobs)
+        if packed is None and all(j.scheme == "ed25519" for j in jobs):
+            packed = self._pack_lists(jobs)
+        return packed
+
+    def _single_pass(self, jobs: Sequence[VerifyJob]) -> _Packed | None:
+        """The native pass over ``jobs`` into this thread's host buffer
+        (grown first if the batch is larger than any before), its lanes
+        then placed on the devices; records provider_pack and
+        provider_copy_in inside a traced call. None when there is no
+        native core or the pass does not take the batch."""
+        from .. import native
+        from ..ops import ed25519 as ted
+
         trace = getattr(_current, "trace", None)
         with _range(trace, "provider_pack"):
             t0 = time.time()
-            found = self._single_pass(jobs)
+            core = native.load_cverify()
+            if core is None:
+                return None
+            host = self._host
+            words = getattr(host, "words", None)
+            if words is None or words.numel() < 32 * len(jobs):
+                import torch
+
+                words = torch.empty(32 * len(jobs), dtype=torch.int32,
+                                    pin_memory=self.device.type == "cuda")
+                host.words, host.view = words, words.numpy()
+            found = core.pack_jobs(jobs, host.view)
             t1 = time.time()
         if found is None:
-            return super().verify_batch(jobs)
-        self.device_batches += 1
-        packed = self._ship(jobs, found, trace, t0, t1)
-        out = (np.zeros(len(jobs), bool) if packed is None
-               else self._run(packed))
-        _shadow_check(jobs, out, self.shadow_rate, self._rng)
-        return out
-
-    def _verify_ed25519_device(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
-        """The ed25519 jobs of a batch the pass did not take (and the
-        re-probe's), packed from lists."""
-        packed = self._pack_lists(jobs)
-        if packed is None:
-            return np.zeros(len(jobs), bool)
-        return self._run(packed)
-
-    def pack_device(self, jobs: Sequence[VerifyJob]):
-        """Host half of a device batch, routed exactly like verify_batch:
-        returns None when this batch would not take the device (the size
-        crossover or the gate says host, the batch mixes schemes, or no job
-        is well-formed); the caller then calls verify_batch, which routes
-        the same way. Otherwise packs the well-formed jobs into word tensors
-        on the device and returns a handle for :meth:`verify_packed`. The
-        sidecar packs batch N+1 here while batch N runs: the words are on
-        the device before this returns, so the next pack may reuse the
-        host buffer."""
-        jobs = list(jobs)
-        if not jobs or self._routes_to_host(len(jobs)):
             return None
-        return self._pack(jobs)
-
-    def _single_pass(self, jobs: Sequence[VerifyJob]):
-        """Runs the native pass over ``jobs`` into this thread's host
-        buffer, growing it first if the batch is larger than any before:
-        (the well-formed lanes it wrote, the positions of the malformed
-        jobs or None when there are none); None when there is no native
-        core or the pass does not take the batch."""
-        from .. import native
-
-        core = native.load_cverify()
-        if core is None:
-            return None
-        host = self._host
-        words = getattr(host, "words", None)
-        if words is None or words.numel() < 32 * len(jobs):
-            import torch
-
-            words = torch.empty(32 * len(jobs), dtype=torch.int32,
-                                pin_memory=self.device.type == "cuda")
-            host.words, host.view = words, words.numpy()
-        found = core.pack_jobs(jobs, host.view)
-        if found is None or found[1] is None:
-            return found
-        return found[0], np.frombuffer(found[1], np.int64)
-
-    def _ship(self, jobs, found, trace=None, t0: float = 0.0,
-              t1: float = 0.0) -> _Packed | None:
-        """The pass's lanes on the device in one copy from this thread's
-        host buffer, complete when this returns; records provider_pack
-        (``t0``–``t1``) and provider_copy_in inside a traced call. None
-        when no lane is well-formed."""
-        from ..ops import ed25519 as ted
-
         PACKS["single_pass"] += 1
         n, held = found
+        good = (range(len(jobs)) if held is None else np.delete(
+            np.arange(len(jobs)), np.frombuffer(held, np.int64)))
         if not n:
-            return None
+            return _Packed(jobs, good)
         with _range(trace, "provider_copy_in"):
-            host = self._host.words[:32 * n].view(4, 8, n)
-            tensors = host.to(self.device, copy=True).unbind()
+            tensors, lanes = self._place(host.words[:32 * n].view(4, 8, n), n)
             t2 = time.time()
         self._record_pack(trace, t0, t1, t2)
-        good = (range(len(jobs)) if held is None
-                else np.delete(np.arange(len(jobs)), held))
-        return _Packed(jobs, good, tensors, ted.verify_arrays_hashed, n)
+        return _Packed(jobs, good, tensors, ted.verify_arrays_hashed, n, lanes)
 
-    def _pack(self, jobs: Sequence[VerifyJob]) -> _Packed | None:
-        """The well-formed jobs of an untraced batch on the device
-        (``pack_device``, ``warm``): by the native pass where it takes the
-        batch, else from lists; None when a job is not ed25519 or none is
-        well-formed."""
-        found = self._single_pass(jobs)
-        if found is not None:
-            return self._ship(jobs, found)
-        if any(j.scheme != "ed25519" for j in jobs):
-            return None
-        return self._pack_lists(jobs)
+    def _pack_lists(self, jobs: Sequence[VerifyJob]) -> _Packed:
+        """The well-formed jobs of an ed25519 batch on the devices, packed
+        from lists: a batch the pass refused for its data (a field that is
+        not bytes-like, a message that is not 32 bytes, no native core), or
+        the ed25519 jobs of a batch that mixes schemes. Records
+        provider_pack and provider_copy_in inside a traced call."""
+        import torch
 
-    def _pack_lists(self, jobs: Sequence[VerifyJob]) -> _Packed | None:
-        """The well-formed jobs of an ed25519 batch on the device, packed
-        from lists; records provider_pack and provider_copy_in inside a
-        traced call. None when no job is well-formed."""
         from ..ops import ed25519 as ted
+        from ..ops import sharded
 
         PACKS["fallback"] += 1
         trace = getattr(_current, "trace", None)
@@ -464,18 +464,38 @@ class TorchVerifier(DeviceRoutedVerifier):
             good = [i for i, j in enumerate(jobs)
                     if len(j.pubkey) == 32 and len(j.sig) == 64]
             if not good:
-                return None
+                return _Packed(jobs, good)
             verify_fn, arrays, n = ted._precompute_auto(
                 [jobs[i].pubkey for i in good],
                 [jobs[i].message for i in good],
-                [jobs[i].sig for i in good], len(good))
+                [jobs[i].sig for i in good],
+                sharded.pad_to_devices(len(good), len(self.mesh)))
             t1 = time.time()
         with _range(trace, "provider_copy_in"):
-            tensors = tuple(ted.words_to_tensor(w, self.device)
-                            for w in arrays)
+            words = torch.from_numpy(np.stack(arrays).view(np.int32))
+            tensors, lanes = self._place(words, n)
             t2 = time.time()
         self._record_pack(trace, t0, t1, t2)
-        return _Packed(jobs, good, tensors, verify_fn, n)
+        return _Packed(jobs, good, tensors, verify_fn, n, lanes)
+
+    def _place(self, words, n: int):
+        """(4, 8, >= n) int32 host words whose first ``n`` lanes are real
+        -> (each device's four (8, lanes / D) word tensors in mesh order,
+        lanes): the lanes padded with zero words to
+        ``sharded.pad_to_devices(n, D)``, cut into one column slice a
+        device, and each slice on its device when this returns, so the
+        next pack may reuse the host buffer."""
+        from ..ops import sharded
+
+        mesh = self.mesh
+        lanes = sharded.pad_to_devices(n, len(mesh))
+        if words.shape[2] < lanes:
+            padded = words.new_zeros(4, 8, lanes)
+            padded[..., :n] = words[..., :n]
+            words = padded
+        per = lanes // len(mesh)
+        return [words[..., k * per:(k + 1) * per].to(dev, copy=True).unbind()
+                for k, dev in enumerate(mesh)], lanes
 
     @staticmethod
     def _record_pack(trace, t0: float, t1: float, t2: float) -> None:
@@ -487,19 +507,32 @@ class TorchVerifier(DeviceRoutedVerifier):
 
     def verify_packed(self, packed: _Packed) -> np.ndarray:
         """Run a handle from :meth:`pack_device` -> bool[len(jobs)]; counts
-        as a device batch (routing was decided at pack time)."""
+        as a device batch (routing was decided at pack time) and draws its
+        shadow sample."""
         self.device_batches += 1
         out = self._run(packed)
         _shadow_check(packed.jobs, out, self.shadow_rate, self._rng)
         return out
 
+    def _verify_ed25519_device(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
+        """The ed25519 jobs of a batch that mixes schemes (and the
+        re-probe's), packed from lists."""
+        return self._run(self._pack_lists(jobs))
+
     def _run(self, packed: _Packed) -> np.ndarray:
-        """Launch a packed batch and wait for its answers, recording
-        provider_device_wait inside a traced call."""
+        """Launch a packed batch on every device before reading any, then
+        read the answers back in mesh order (ops/sharded.py's rule);
+        records provider_device_wait inside a traced call. A handle with
+        no well-formed lane answers False without a launch."""
+        if not packed.n:
+            return np.zeros(len(packed.jobs), bool)
+        from ..ops import sharded
+
         trace = getattr(_current, "trace", None)
         with _range(trace, "provider_device_wait"):
             t0 = time.time()
-            lanes = packed.verify_fn(*packed.tensors)[:packed.n].cpu().numpy()
+            lanes = sharded._gather(sharded._launch(
+                packed.verify_fn, packed.tensors))[:packed.n]
             t1 = time.time()
         if trace is not None:
             _obs.VERIFY.record("provider_device_wait", t0, t1,
@@ -512,9 +545,9 @@ class TorchVerifier(DeviceRoutedVerifier):
         return out
 
     def warm(self) -> None:
-        """Build the kernels and run both paths once, bypassing the routing
-        (raises on failure). On the CPU there is nothing to build, and
-        nothing runs."""
+        """Build the mesh (raising if the host cannot) and, on cards, the
+        kernels, running both paths once on every device, bypassing the
+        routing. On the CPU there is nothing to build, and nothing runs."""
         if self.device.type != "cuda":
             return
         for n in WARM_SIZES:
@@ -523,10 +556,11 @@ class TorchVerifier(DeviceRoutedVerifier):
             self._run(self._pack([VerifyJob(bytes(32), b"", bytes(64))]))
 
 
-class TorchMeshVerifier(DeviceRoutedVerifier):
-    """The batched device verifier over several devices: each batch's lanes
-    split into equal slices, one per device, and each device runs one
-    launch of the challenge kernel and of the verify kernel on its slice
+class TorchMeshVerifier(TorchVerifier):
+    """TorchVerifier over several devices: each batch's lanes padded to a
+    multiple of the device count and cut into equal column slices, one a
+    device; every device runs one launch of the challenge kernel and of
+    the verify kernel on its slice before any answer is read
     (ops/sharded.py). Counterpart of the JAX package's ``MeshVerifier``;
     selectable as ``verifier = "torch-sharded"``.
 
@@ -544,12 +578,8 @@ class TorchMeshVerifier(DeviceRoutedVerifier):
                  rng: random.Random | None = None,
                  device_min_sigs: int = DEVICE_MIN_SIGS_DEFAULT,
                  devices=None):
-        super().__init__(shadow_rate=shadow_rate, rng=rng,
-                         device_min_sigs=device_min_sigs)
-        if devices is None:
-            from ..ops import require_cuda
-
-            require_cuda("cuda")
+        super().__init__(devices[0] if devices else "cuda", shadow_rate,
+                         rng, device_min_sigs)
         self.n_devices = n_devices
         self._devices = devices
         self._mesh = None
@@ -565,11 +595,6 @@ class TorchMeshVerifier(DeviceRoutedVerifier):
         return self._mesh
 
     @property
-    def device(self):
-        """The mesh's first device (its type is every device's)."""
-        return self.mesh[0]
-
-    @property
     def kernel_backend(self) -> str:
         """Read without building the mesh: a mesh of cards unless the
         devices were named."""
@@ -579,49 +604,6 @@ class TorchMeshVerifier(DeviceRoutedVerifier):
 
         cpu = torch.device(self._devices[0]).type == "cpu"
         return "torch-cpu" if cpu else "cuda"
-
-    def _verify_ed25519_device(self, jobs: Sequence[VerifyJob]) -> np.ndarray:
-        from ..ops import sharded
-
-        return sharded.verify_batch_sharded(
-            [j.pubkey for j in jobs], [j.message for j in jobs],
-            [j.sig for j in jobs], self.mesh)
-
-    def pack_device(self, jobs: Sequence[VerifyJob]):
-        """Host half of the mesh dispatch, routed exactly like
-        verify_batch: None for a batch that would not take the device (the
-        crossover or the gate says host, mixed schemes, nothing
-        well-formed); else a handle for :meth:`verify_packed` whose slices
-        are already on their devices."""
-        jobs = list(jobs)
-        if (not jobs or self._routes_to_host(len(jobs))
-                or any(j.scheme != "ed25519" for j in jobs)):
-            return None
-        from ..ops import sharded
-
-        return sharded.pack_batch_sharded(
-            [j.pubkey for j in jobs], [j.message for j in jobs],
-            [j.sig for j in jobs], self.mesh)
-
-    def verify_packed(self, packed) -> np.ndarray:
-        """Launch a handle from :meth:`pack_device` -> bool[packed.n];
-        counts as a device batch (routing was decided at pack time)."""
-        from ..ops import sharded
-
-        self.device_batches += 1
-        return sharded.dispatch_packed(packed)
-
-    def warm(self) -> None:
-        """Build the mesh (raising if the host cannot) and, on cards, the
-        kernels, running both paths once on every device, bypassing the
-        routing."""
-        if self.device.type != "cuda":
-            return
-        for n in WARM_SIZES:
-            self._verify_ed25519_device(
-                [VerifyJob(bytes(32), bytes(32), bytes(64))] * n)
-        self._verify_ed25519_device(
-            [VerifyJob(bytes(32), b"", bytes(64))] * len(self.mesh))
 
 
 def host_verify(jobs: Sequence[VerifyJob]) -> np.ndarray:

@@ -705,9 +705,8 @@ class SidecarServer:
                     # lanes and mesh width; an unpacked device batch is
                     # reconstructed from the mesh width.
                     if packed is not None:
-                        ndev = getattr(packed, "n_devices", 1)
-                        real = len(packed.good)
-                        lanes = getattr(packed, "bucket", real)
+                        ndev, real, lanes = (packed.n_devices, packed.n,
+                                             packed.lanes)
                     else:
                         ndev = self.mesh_devices or 1
                         real = len(jobs)

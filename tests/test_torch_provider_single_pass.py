@@ -7,7 +7,9 @@ Held against the lists it replaces: the words are the numpy packer's, byte
 for byte; and on ``TorchVerifier("cpu")`` every batch -- mixed schemes,
 malformed keys and signatures, bytearray and memoryview fields, fields the
 pass refuses, host-hashed messages -- gives the answers, device and host
-batch counts and shadow draws that the list path gives. Most cases stand
+batch counts and shadow draws that the list path gives; and
+``TorchMeshVerifier`` over 1, 3 and 8 copies of the CPU device is the same
+verifier, its lanes padded to the device count. Most cases stand
 a fast kernel in for the plain versions: it reads each lane's words back
 into bytes and asks the oracle-exact host verifier, so a lane given
 another job's words answers wrongly.
@@ -26,6 +28,7 @@ from corda_tpu_torch import native
 from corda_tpu_torch.crypto import fast_ed25519, provider
 from corda_tpu_torch.crypto import ref_ed25519 as ref
 from corda_tpu_torch.ops import ed25519 as ted
+from corda_tpu_torch.ops import sharded
 
 
 @pytest.fixture(scope="module")
@@ -105,6 +108,28 @@ class FakeKernel:
         lanes = zip(_bytes_of(a), _bytes_of(r), _bytes_of(s), _bytes_of(m))
         return torch.tensor([fast_ed25519.verify(pk, msg, rr + ss)
                              for pk, rr, ss, msg in lanes], dtype=torch.bool)
+
+
+class HostHashKernel:
+    """Stands in for ``verify_arrays`` (host-hashed words: the fourth
+    array is h): records each call's words in ``kernel.seen`` and answers
+    each lane by the oracle's group equation on the bytes its words
+    spell."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+
+    def __call__(self, a, r, s, h):
+        self.kernel.seen.append(torch.stack([a, r, s, h]).clone())
+        out = []
+        for pk, rr, ss, hh in zip(_bytes_of(a), _bytes_of(r), _bytes_of(s),
+                                  _bytes_of(h)):
+            pt = ref.decompress(pk)
+            out.append(pt is not None and ref.compress(
+                ref.double_scalar_mult_sub(int.from_bytes(ss, "little"),
+                                           int.from_bytes(hh, "little"),
+                                           pt)) == rr)
+        return torch.tensor(out, dtype=torch.bool)
 
 
 @pytest.fixture
@@ -406,6 +431,54 @@ def test_pack_device_refuses_mixed_schemes_without_packing(kernel, packs):
     jobs, _ = _batches()["mixed"]
     assert v.pack_device(jobs) is None
     assert packs == {"single_pass": 0, "fallback": 0}
+
+
+# -- the mesh: the same verifier over more devices -----------------------------
+
+
+def _ed_lanes(jobs):
+    """The positions of the ed25519 jobs, and how many are well-formed."""
+    ed = [i for i, j in enumerate(jobs) if j.scheme == "ed25519"]
+    return ed, sum(len(jobs[i].pubkey) == 32 and len(jobs[i].sig) == 64
+                   for i in ed)
+
+
+@pytest.mark.parametrize("d", [1, 3, 8])
+@pytest.mark.parametrize("case", BATCHES)
+def test_the_mesh_answers_counts_and_pads_as_one_verifier(case, d, kernel,
+                                                         packs, monkeypatch):
+    """TorchMeshVerifier on D copies of the CPU device: the oracle's
+    answers and ops/sharded's on the ed25519 jobs, the single-device
+    verifier's counts and pack path, and its lanes padded to
+    ``pad_to_devices(n_good, D)``, one equal slice a device."""
+    monkeypatch.setattr(ted, "verify_arrays", HostHashKernel(kernel))
+    jobs, path = _batches()[case]
+    ed, n_good = _ed_lanes(jobs)
+    v = provider.TorchMeshVerifier(devices=["cpu"] * d, device_min_sigs=4)
+    got = v.verify_batch(jobs)
+    packed_by, seen, kernel.seen = dict(packs), kernel.seen, []
+    np.testing.assert_array_equal(got, provider.OracleVerifier()
+                                  .verify_batch(jobs))
+    np.testing.assert_array_equal(got[ed], sharded.verify_batch_sharded(
+        [jobs[i].pubkey for i in ed], [jobs[i].message for i in ed],
+        [jobs[i].sig for i in ed], v.mesh))
+    one = provider.TorchVerifier(device="cpu", device_min_sigs=4)
+    one.verify_batch(jobs)
+    assert (v.device_batches, v.host_batches) == (one.device_batches,
+                                                  one.host_batches)
+    if path is None:
+        assert packed_by == dict.fromkeys(packed_by, 0)
+    else:
+        assert packed_by[path] == 1 and sum(packed_by.values()) == 1
+    lanes = sharded.pad_to_devices(n_good, d)
+    if path is None or not n_good:
+        assert seen == []
+    else:
+        assert [w.shape for w in seen] == [(4, 8, lanes // d)] * d
+    if path is not None and n_good and len(ed) == len(jobs):
+        handle = v.pack_device(jobs)
+        assert (handle.n_devices, handle.n, handle.lanes) == (d, n_good,
+                                                              lanes)
 
 
 # -- the per-thread buffer -----------------------------------------------------
