@@ -35,7 +35,9 @@ the pass does not take packs from lists: an all-ed25519 batch whose data
 the pass cannot read (a field that is not bytes, bytearray or memoryview;
 a message that is not 32 bytes, hashed on the host) whole, a batch that
 mixes schemes after the scheme split. ``PACKS`` counts the packed batches
-by path.
+by path, ``PASS_THREADS`` the threads each batch of the pass ran on: it
+reads a batch of slotted VerifyJobs by offset, spread over the calling
+thread's cores.
 
 Spans: while the torch profiler collects, every TorchVerifier.verify_batch
 call that takes the device records four spans into ``obs.trace.VERIFY``
@@ -61,11 +63,13 @@ from ..obs import trace as _obs
 from . import fast_ed25519, ref_ed25519
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, slots=True)
 class VerifyJob:
     """One signature check: does ``sig`` by ``pubkey`` cover ``message``?
     ``scheme`` routes the job: "ed25519" (every ledger signature) or
-    "ecdsa-p256" (host path); any other scheme rejects."""
+    "ecdsa-p256" (host path); any other scheme rejects. Slotted: the
+    native pass reads each field at its fixed offset, off the calling
+    thread."""
 
     pubkey: bytes
     message: bytes
@@ -298,6 +302,11 @@ def _range(trace: _Trace | None, name: str):
 # the host-hash path, fields that are not bytes, no native core).
 PACKS = {"single_pass": 0, "fallback": 0}
 
+# The batches the native pass packed, and the threads it ran them on, in
+# sum: one thread a batch read by attribute or too small to split, else up
+# to the cores of the calling thread's affinity mask.
+PASS_THREADS = {"batches": 0, "threads": 0}
+
 
 class _Packed:
     """A batch packed for the device: each device's four word tensors (one
@@ -434,8 +443,10 @@ class TorchVerifier(DeviceRoutedVerifier):
             t1 = time.time()
         if found is None:
             return None
+        n, held, threads = found
         PACKS["single_pass"] += 1
-        n, held = found
+        PASS_THREADS["batches"] += 1
+        PASS_THREADS["threads"] += threads
         good = (range(len(jobs)) if held is None else np.delete(
             np.arange(len(jobs)), np.frombuffer(held, np.int64)))
         if not n:
